@@ -11,23 +11,38 @@ order, each fatal on failure:
    versions, the float32 precision flags as set here (TF32 off everywhere,
    so the plain versions are float32-exact references);
 2. build: every kernel of the port compiled from ``mvtb_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel);
+   (one ``nvcc`` per source, in parallel), with each kernel's ptxas lines;
 3. kernel phase: the fused plane kernel against its plain PyTorch version
    on the card, both precision tiers, at (N, H, W, D) = (8, 240, 240, 160),
    (16, 240, 240, 155) and (3, 15, 13, 11), for every stage combination of
    the JAX package's plane tests; relative-of-max error at most 1e-5
-   (``plane``) and 2e-2 (``plane_fast``);
-4. slice phase: a small end-to-end reference (``seg_eval_step`` on the card
-   against the same step on the CPU, same weights and draws, logits within
-   1e-4 of their max), then the main path: ``seg_eval_step`` with the
-   full-width 4,810,074-parameter UNet on a 2x4x240x240x160 batch under the
-   bench stack (``fft_backend="plane"``); it must launch the kernel, never
-   call the plain version on a CUDA tensor, and give finite logits and a
-   (2, 3) Dice;
-5. timing with CUDA events: kernel, plain version and ``torch.fft``
-   (fft2 + ifft2 over the same planes: the transform part only) at the
-   slice and bench shapes, ``stylize_batch`` vol/s at the bench's
-   4x4x240x240x155, and the eval step's ms.
+   (``plane``) and 2e-2 (``plane_fast``). Then every matmul-DFT axis kernel
+   (r2c, c2c, c2r; lane and sublane; ``highest`` and ``default``) against
+   its plain version at the views of the train shape (8, 128, 128, 64), the
+   bench shape (16, 240, 240, 155) and an odd (3, 7, 13, 11), at most 1e-5
+   (``highest``) and 2e-2 (``default``);
+4. slice phase (corrupted-validation inference): a small end-to-end
+   reference (``seg_eval_step`` on the card against the same step on the
+   CPU, same weights and draws, logits within 1e-4 of their max), then
+   ``seg_eval_step`` with the full-width 4,810,074-parameter UNet on a
+   2x4x240x240x160 batch under the bench stack (``fft_backend="plane"``);
+   it must launch the plane kernel, never call the plain version on a CUDA
+   tensor, and give finite logits and a (2, 3) Dice;
+5. train phase (segmentation training on ``fft_backend="dft_pallas"``): one
+   float32 ``seg_train_step`` with SGD(1.0) at 1x4x32^3 on the card against
+   the same step on the CPU (gradients within 1e-4 of the largest one),
+   then ``train_segmentation`` for 6 steps at B=2, 4x128x128x64 with the
+   full-width UNet in bfloat16, ``reference_optimizer`` and the bench stack;
+   it must launch r2c, c2c and c2r 1, 4 and 1 times per step, never call a
+   plain version on a CUDA tensor, give a finite loss at every step and
+   change the parameters;
+6. timing with CUDA events: the plane kernel, its plain version and
+   ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
+   only) at the slice and bench shapes; each axis kernel, its plain version
+   and the ``torch.fft`` call of the same transform at every view of the
+   train and bench shapes; ``stylize_batch`` ms and vol/s on both paths;
+   the eval step's ms and the train step's ms (host clock around steps
+   ending in ``torch.cuda.synchronize()``).
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels": ...}``
 JSON object and ``{"ok": true, "device": {...}}``.
@@ -36,6 +51,7 @@ JSON object and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -77,6 +93,20 @@ TOL = {"plane": 1e-5, "plane_fast": 2e-2}
 KERNEL_SHAPES = [(8, 240, 240, 160), (16, 240, 240, 155), (3, 15, 13, 11)]
 SLICE_SHAPE = (2, 4, 240, 240, 160)
 BENCH_SHAPE = (4, 4, 240, 240, 155)
+# the registry's default training batch (mvtb_tpu/experiments/registry.py)
+TRAIN_SHAPE = (2, 4, 128, 128, 64)
+TRAIN_STEPS = 6
+AXIS_TOL = {"highest": 1e-5, "default": 2e-2}
+# (N, H, W, D) volumes whose axis-kernel views are checked: B*C of the train
+# and bench batches, and an odd one
+AXIS_SHAPES = {"train": (8, 128, 128, 64), "bench": (16, 240, 240, 155),
+               "odd": (3, 7, 13, 11)}
+# kernel launches of one dft_pallas stylize call
+LAUNCHES_PER_STEP = {"r2c": 1, "c2c": 4, "c2r": 1}
+# the TPU kernel each axis body replaces
+AXIS_REPLACES = {"r2c": "mvtb_tpu/ops/pallas_dft.py:116",
+                 "c2c": "mvtb_tpu/ops/pallas_dft.py:101",
+                 "c2r": "mvtb_tpu/ops/pallas_dft.py:127"}
 
 
 def out(obj) -> None:
@@ -263,11 +293,304 @@ def timing_phase(dev) -> dict:
         torch.cuda.empty_cache()
     g = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(BENCH_SHAPE, generator=g, device=dev)
-    for backend in ("plane", "plane_fast"):
+    for backend in ("plane", "plane_fast", "dft_pallas"):
         cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend=backend)
         ms = cuda_ms(lambda: fused.stylize_batch(x, cfg, generator=g, device=dev), 5)
         res[f"stylize_batch {backend} bench"] = {"ms": ms, "vol_per_s": BENCH_SHAPE[0] / ms * 1e3}
     return res
+
+
+def axis_views(shape):
+    """Every axis-kernel launch of one ``dft_pallas`` stylize call on a
+    (N, H, W, D) volume (``on_path`` True, in the order the path makes
+    them), and one view of each orientation that only ``dft_nd``,
+    ``idft_nd`` or ``idft_nd_real`` use. Each entry: (on_path, label, body,
+    lane, view, matrix kind, n, inverse)."""
+    N, H, W, D = shape
+    h = D // 2 + 1
+    M = N * H * W
+    path = [("r2c lane D", "r2c", True, (M, D), "half", D, False),
+            ("c2c sub H fwd", "c2c", False, (N, H, W * h), "gauss", H, False),
+            ("c2c sub W fwd", "c2c", False, (N * H, W, h), "gauss", W, False),
+            ("c2c sub H inv", "c2c", False, (N, H, W * h), "gauss", H, True),
+            ("c2c sub W inv", "c2c", False, (N * H, W, h), "gauss", W, True),
+            ("c2r lane D", "c2r", True, (M, h), "half_inv", D, True)]
+    other = [("r2c sub W", "r2c", False, (N * H, W, D), "full", W, False),
+             ("c2c lane D", "c2c", True, (M, D), "gauss", D, False),
+             ("c2r sub W", "c2r", False, (N * H, W, h), "full", W, True)]
+    return [(True,) + v for v in path] + [(False,) + v for v in other]
+
+
+def axis_case(body, view, kind, n, inverse, dev, seed):
+    from mvtb_tpu_torch.ops import dft, pallas_dft
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mats = dft.device_mats(kind, n, inverse, dev)
+    ins = [torch.randn(view, generator=g, device=dev)
+           for _ in range(pallas_dft.ARITY[body][0])]
+    return ins, mats
+
+
+def axis_bound(body, lane, view, mats, precision):
+    """(flops, bytes, bound ms, bound_by) of one axis-kernel call: each
+    input and matrix read once, each output written once; 2 operations per
+    multiply-add over every product of the body."""
+    from mvtb_tpu_torch.ops import pallas_dft
+
+    n_data, n_mats, n_outs = pallas_dft.ARITY[body]
+    n_in, n_out = mats[0].shape
+    rows = view[0] if lane else view[0] * view[2]
+    flops = 2.0 * n_mats * rows * n_in * n_out
+    nbytes = 4.0 * (n_data * rows * n_in + n_mats * n_in * n_out + n_outs * rows * n_out)
+    peak = BF16_FLOPS if precision == "default" else F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BPS
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def axis_library(body, lane, ins, n, inverse):
+    """The one ``torch.fft`` call that computes the same transform as an
+    axis-kernel call on the path (timed as a yardstick, never used by the
+    port), or None."""
+    if body == "r2c" and lane:
+        return lambda: torch.fft.rfft(ins[0], dim=-1)
+    if body == "c2r" and lane:
+        z = torch.complex(ins[0], ins[1])
+        return lambda: torch.fft.irfft(z, n=n, dim=-1)
+    if body == "c2c" and not lane:
+        z = torch.complex(ins[0], ins[1])
+        fn = torch.fft.ifft if inverse else torch.fft.fft
+        return lambda: fn(z, dim=1)
+    return None
+
+
+def axis_kernel_phase(dev) -> dict:
+    from mvtb_tpu_torch.ops import pallas_dft
+
+    worst = {}
+    for name, shape in AXIS_SHAPES.items():
+        for i, (_, label, body, lane, view, kind, n, inverse) in enumerate(axis_views(shape)):
+            ins, mats = axis_case(body, view, kind, n, inverse, dev, seed=i)
+            call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+            for precision, tol in AXIS_TOL.items():
+                got = call(body, ins, mats, precision)
+                ref = pallas_dft.plain(body, lane, ins, mats, precision)
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(a).all()) for a in got),
+                      f"non-finite axis kernel output {name} {label} {precision}")
+                err = max(rel_err(a, b) for a, b in zip(got, ref))
+                check(err <= tol, f"axis kernel vs plain {name} {label} {precision}: "
+                                  f"{err:.3e} > {tol}")
+                key = f"{body} {'lane' if lane else 'sublane'} {precision} {name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                del got, ref
+            del ins
+        torch.cuda.empty_cache()
+    return worst
+
+
+def axis_timing(dev) -> dict:
+    """Kernel, plain and library ms with the bound of every path view of
+    the train and bench shapes, both tiers (library and abs error with the
+    ``highest`` tier, the one the path runs)."""
+    from mvtb_tpu_torch.ops import pallas_dft
+
+    res = {}
+    for name in ("train", "bench"):
+        for i, (on_path, label, body, lane, view, kind, n, inverse) in enumerate(
+                axis_views(AXIS_SHAPES[name])):
+            if not on_path:
+                continue
+            ins, mats = axis_case(body, view, kind, n, inverse, dev, seed=100 + i)
+            call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+            for precision in AXIS_TOL:
+                got = call(body, ins, mats, precision)
+                ref = pallas_dft.plain(body, lane, ins, mats, precision)
+                torch.cuda.synchronize()
+                abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+                del got, ref
+                flops, nbytes, bound_ms, bound_by = axis_bound(body, lane, view, mats, precision)
+                row = {"body": body, "view": list(view), "precision": precision,
+                       "ms": cuda_ms(lambda: call(body, ins, mats, precision), 10),
+                       "plain_ms": cuda_ms(lambda: pallas_dft.plain(body, lane, ins, mats, precision), 10),
+                       "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": abs_err,
+                       "library_ms": None}
+                lib = axis_library(body, lane, ins, n, inverse)
+                if lib is not None and precision == "highest":
+                    row["library_ms"] = cuda_ms(lib, 10)
+                res[f"{name} {label} {precision}"] = row
+            del ins
+        torch.cuda.empty_cache()
+    return res
+
+
+def _norm_fed_biases(model):
+    """Conv biases that feed an instance norm: the norm subtracts their
+    mean, so their exact gradient is 0 and both devices give rounding noise."""
+    from mvtb_tpu_torch.models.unet3d import ConvNormAct
+
+    return {f"{name}.{conv}.bias" for name, m in model.named_modules()
+            if isinstance(m, ConvNormAct) and not m.conv_only
+            for conv in ("Conv_0", "ConvTranspose_0") if hasattr(m, conv)}
+
+
+def train_phase(dev) -> dict:
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.ops import fused, fused_plane, pallas_dft
+    from mvtb_tpu_torch.train import (create_seg_state, dice_loss, reference_optimizer,
+                                      seg_train_step, train_segmentation)
+
+    # (a) small reference: one float32 SGD(1.0) step, card against CPU
+    torch.manual_seed(5)
+    model = UNet(4, 3, device=dev)
+    cpu_model = UNet(4, 3, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    small = fused.StylizeConfig(**SMALL_STACK, fft_backend="dft_pallas")
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(1, 4, 32, 32, 32, generator=g)
+    lab = (torch.rand(1, 3, 32, 32, 32, generator=g) < 0.3).float()
+    draws = fused.sample_draws(small, (32, 32, 32), 1, 4, generator=g, device="cpu")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    grads, small_losses = {}, {}
+    for name, m, d in (("cpu", cpu_model, "cpu"), ("card", model, dev),
+                       ("card again", model, dev)):
+        m.load_state_dict(start)
+        st = create_seg_state(m, torch.optim.SGD(m.parameters(), lr=1.0), device=d)
+        small_losses[name] = float(seg_train_step(st, x, lab, small, draws=draws, device=d))
+        grads[name] = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+    # the axis kernels have no atomics: the same stylize twice is bit-equal
+    styled = [fused.stylize_batch(x, small, draws=draws, device=dev) for _ in range(2)]
+    check(torch.equal(*styled), "the dft_pallas stylize differs between two card runs")
+    zero = _norm_fed_biases(model)
+    gmax = max(float(v.abs().max()) for v in grads["cpu"].values())
+    rows, zero_max = [], 0.0  # (error / own max, error / largest gradient, name)
+    for k, ref in grads["cpu"].items():
+        err = float((grads["card"][k] - ref).abs().max())
+        rows.append((err / max(float(ref.abs().max()), 1e-30), err / gmax, k))
+        if k in zero:
+            zero_max = max(zero_max, float(grads["card"][k].abs().max()) / gmax)
+    # Held to the largest gradient, not to each tensor's own max: cuDNN's
+    # backward is not deterministic, so two card runs of the same step
+    # already differ (``card_vs_card_over_max``), and a tensor whose whole
+    # gradient is that small can differ by a large share of its own max.
+    grad_err = max(r[1] for r in rows)
+    card_card = max(float((grads["card again"][k] - g).abs().max())
+                    for k, g in grads["card"].items()) / gmax
+    worst_own = sorted((r for r in rows if r[2] not in zero), reverse=True)[:3]
+    check(grad_err <= 1e-4, f"card vs CPU train-step gradients at 1x4x32^3: {grad_err:.3e}")
+    check(zero_max <= 1e-6, f"norm-fed bias gradients not ~0 on the card: {zero_max:.3e}")
+    check(abs(small_losses["card"] - small_losses["cpu"]) <= 1e-5,
+          f"train-step losses {small_losses}")
+    del model, cpu_model, grads
+
+    # (b) the main path: the registry's default training run, bf16 UNet
+    torch.manual_seed(7)
+    model = UNet(4, 3, device=dev, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 4_810_074, f"UNet has {n_params} parameters")
+    state = create_seg_state(model, reference_optimizer(model.parameters()), device=dev)
+    cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, C = TRAIN_SHAPE[:2]
+    batches = [(torch.randn(TRAIN_SHAPE, generator=g, device=dev),
+                (torch.rand((B, 3) + TRAIN_SHAPE[2:], generator=g, device=dev) < 0.3).float())
+               for _ in range(TRAIN_STEPS)]
+    before = [p.detach().clone() for p in model.parameters()]
+    stamps = []
+
+    def timed_batches():
+        for b in batches:  # each step bracketed by a synchronize
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    plain = pallas_dft.plain
+    plain_on_card = []
+
+    def watched_plain(body, lane, ins, *a, **kw):
+        if ins[0].is_cuda:
+            plain_on_card.append((body, tuple(ins[0].shape)))
+        return plain(body, lane, ins, *a, **kw)
+
+    pallas_dft.plain = watched_plain
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in pallas_dft.launches:
+            pallas_dft.launches[k] = 0
+        fused_plane.plane_stylize_half.launches = 0
+        losses = train_segmentation(state, timed_batches(), TRAIN_STEPS, cfg,
+                                    generator=g, device=dev)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        launches = dict(pallas_dft.launches)
+        plane_launches = fused_plane.plane_stylize_half.launches
+    finally:
+        pallas_dft.plain = plain
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for body, per_step in LAUNCHES_PER_STEP.items():
+        check(launches[body] == per_step * TRAIN_STEPS,
+              f"{body} launched {launches[body]} times in {TRAIN_STEPS} steps, "
+              f"expected {per_step * TRAIN_STEPS}")
+    check(plane_launches == 0, "the train path launched the plane kernel")
+    check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"losses {losses}")
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    check(changed > 0, "the train steps left every parameter unchanged")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    del before
+
+    # the step's parts on their own, device time
+    image, label = batches[0]
+    with torch.no_grad():
+        stylize_ms = cuda_ms(lambda: fused.stylize_batch(image, cfg, generator=g, device=dev), 5)
+
+    def fwd_bwd():
+        state.optimizer.zero_grad(set_to_none=True)
+        dice_loss(model(image), label).backward()
+
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
+    opt_ms = cuda_ms(state.optimizer.step, 5)
+    return {"small_ref": {"grad_err_over_max": grad_err,
+                          "card_vs_card_over_max": card_card,
+                          "worst_tensors_err_over_own_max": worst_own,
+                          "norm_fed_bias_grad_over_max": zero_max,
+                          "losses": small_losses},
+            "unet_params": n_params, "losses": losses, "launches": launches,
+            "params_changed": changed, "step_ms": step_ms,
+            "step_ms_median_last5": statistics.median(step_ms[1:]),
+            "stylize_batch_ms": stylize_ms, "unet_fwd_bwd_ms": fwd_bwd_ms,
+            "optimizer_step_ms": opt_ms, "peak_memory_gb": peak_gb}
+
+
+def kernels_line(sl, tr, tm, ax) -> list:
+    """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
+    path, each axis kernel from the train path."""
+    main_t = tm["plane slice"]
+    kernels = [{
+        "name": "fused_plane", "route": "cuda",
+        "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
+        "replaces": "mvtb_tpu/ops/fused_plane.py:218",
+        "launches": sl["launches"], "max_abs_err": main_t["max_abs_err"],
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": main_t["library_ms_fft2_ifft2_transform_only"]}]
+    # the axis kernels per train step: the sum over the body's launches of
+    # one stylize call at the train shape, in the tier the path runs
+    for body in LAUNCHES_PER_STEP:
+        rows = [r for k, r in ax.items()
+                if k.startswith("train ") and r["body"] == body and r["precision"] == "highest"]
+        check(len(rows) == LAUNCHES_PER_STEP[body], f"{body}: {len(rows)} timed views")
+        worst_row = max(rows, key=lambda r: r["bound_ms"])
+        kernels.append({
+            "name": f"axis_dft_{body}", "route": "cuda",
+            "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
+            "replaces": AXIS_REPLACES[body], "launches": tr["launches"][body],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
+            "library_ms": sum(r["library_ms"] for r in rows)})
+    return kernels
 
 
 def main() -> int:
@@ -302,6 +625,10 @@ def main() -> int:
     worst = kernel_phase(dev)
     out({"kernel_phase_max_rel_err": worst, "tolerance": TOL,
          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    axis_worst = axis_kernel_phase(dev)
+    out({"axis_kernel_phase_max_rel_err": axis_worst, "tolerance": AXIS_TOL,
+         "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     sl = slice_phase(dev)
@@ -309,19 +636,20 @@ def main() -> int:
     out({"slice_phase": sl})
 
     t0 = time.perf_counter()
+    tr = train_phase(dev)
+    tr["seconds"] = time.perf_counter() - t0
+    out({"train_phase": tr})
+
+    t0 = time.perf_counter()
     tm = timing_phase(dev)
     out({"timing": tm, "card": smi, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    ax = axis_timing(dev)
+    out({"axis_timing": ax, "card": smi, "seconds": time.perf_counter() - t0})
 
-    main_t = tm["plane slice"]
+    kernels = kernels_line(sl, tr, tm, ax)
     out(smi_line())
-    out({"kernels": [{
-        "name": "fused_plane", "route": "cuda",
-        "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
-        "replaces": "mvtb_tpu/ops/fused_plane.py:218",
-        "launches": sl["launches"], "max_abs_err": main_t["max_abs_err"],
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms_fft2_ifft2_transform_only"]}]})
+    out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -1,8 +1,10 @@
 """flax parameter tree -> state_dict of :class:`~.unet3d.UNet`.
 
 The caller hands over the flax ``params`` tree as nested dicts of numpy
-arrays (fetched to the host on its side). Module names are the same on
-both sides; the leaves map as
+arrays (fetched to the host on its side). The same mapping serves every
+tree with the structure of the parameters: gradients, and the optimizer's
+``mu``, ``nu`` and ``nu_max``. Module names are the same on both sides;
+the leaves map as
 
 * conv ``kernel`` (k, k, k, Cin, Cout) -> ``weight`` (Cout, Cin, k, k, k);
 * transposed-conv ``kernel`` -> ``weight`` (Cin, Cout, k, k, k), flipped in
@@ -35,7 +37,9 @@ def _leaf(path: str, key: str, value: np.ndarray, parent: str):
 def unet_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Convert a flax ``UNet`` params tree (``variables["params"]``, numpy
     leaves) into a state_dict for :class:`~mvtb_tpu_torch.models.unet3d.UNet`
-    of the same configuration. Load it with ``load_state_dict(strict=True)``."""
+    of the same configuration. Load it with ``load_state_dict(strict=True)``.
+    A gradient or moment tree of the same structure maps the same way (the
+    map is a per-leaf transpose, flip or reshape)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str, parent: str):
@@ -48,3 +52,4 @@ def unet_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, "", "")
     return out
+

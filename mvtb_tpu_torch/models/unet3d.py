@@ -20,6 +20,15 @@ here:
 The JAX package's slab lowering of stride-1 convs is a TPU reformulation of
 the same convolution and is not ported; the tests hold this module against
 it.
+
+``dtype`` is the compute type of the JAX modules: parameters stay float32
+and are cast at use. The casts are written out where flax rounds (not
+``torch.autocast``, which keeps the norms in float32): each conv casts its
+input and weight to ``dtype`` and adds the bias in the output's type; the
+normalisation computes its statistics in float32 and rounds its output to
+``dtype``; PReLU casts its slope to the input's type. So with
+``dtype=torch.bfloat16`` every activation is bfloat16, as in the JAX
+package's default training configuration.
 """
 
 from __future__ import annotations
@@ -59,10 +68,10 @@ class Conv(nn.Module):
     """3D convolution with flax ``SAME`` padding. Weight (Cout, Cin, k, k, k)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 stride: int = 1, device=None):
+                 stride: int = 1, device=None, dtype=torch.float32):
         super().__init__()
         k = kernel_size
-        self.kernel_size, self.stride = k, stride
+        self.kernel_size, self.stride, self.dtype = k, stride, dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k, k, device=device))
         self.bias = nn.Parameter(torch.zeros(cout, device=device))
         _lecun_normal_(self.weight, cin * k ** 3)
@@ -71,9 +80,11 @@ class Conv(nn.Module):
         pads = []
         for n in reversed(x.shape[2:]):  # F.pad lists the last axis first
             pads += _same_pads(n, self.kernel_size, self.stride)
+        x = x.to(self.dtype)
         if any(pads):
             x = F.pad(x, pads)
-        return F.conv3d(x, self.weight, self.bias, stride=self.stride)
+        y = F.conv3d(x, self.weight.to(self.dtype), stride=self.stride)
+        return y + self.bias.to(y.dtype).view(-1, 1, 1, 1)
 
 
 class ConvTranspose(nn.Module):
@@ -81,10 +92,10 @@ class ConvTranspose(nn.Module):
     which is the flax kernel flipped in space."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 stride: int = 2, device=None):
+                 stride: int = 2, device=None, dtype=torch.float32):
         super().__init__()
         k = kernel_size
-        self.kernel_size, self.stride = k, stride
+        self.kernel_size, self.stride, self.dtype = k, stride, dtype
         self.weight = nn.Parameter(torch.empty(cin, cout, k, k, k, device=device))
         self.bias = nn.Parameter(torch.zeros(cout, device=device))
         _lecun_normal_(self.weight, cin * k ** 3)
@@ -94,10 +105,12 @@ class ConvTranspose(nn.Module):
         # lax.conv_transpose SAME: pad_lo = k-1 if s > k-1 else ceil((k+s-2)/2)
         pad_lo = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
         start = k - 1 - pad_lo
-        y = F.conv_transpose3d(x, self.weight, self.bias, stride=s)
+        y = F.conv_transpose3d(x.to(self.dtype), self.weight.to(self.dtype),
+                               stride=s)
         n = x.shape[2:]
-        return y[:, :, start:start + n[0] * s, start:start + n[1] * s,
-                 start:start + n[2] * s]
+        y = y[:, :, start:start + n[0] * s, start:start + n[1] * s,
+              start:start + n[2] * s]
+        return y + self.bias.to(y.dtype).view(-1, 1, 1, 1)
 
 
 class ConvNormAct(nn.Module):
@@ -106,14 +119,15 @@ class ConvNormAct(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  kernel_size: int = 3, transposed: bool = False,
-                 conv_only: bool = False, device=None):
+                 conv_only: bool = False, device=None, dtype=torch.float32):
         super().__init__()
         if transposed:
             self.ConvTranspose_0 = ConvTranspose(cin, cout, kernel_size,
-                                                 stride, device)
+                                                 stride, device, dtype)
         else:
-            self.Conv_0 = Conv(cin, cout, kernel_size, stride, device)
+            self.Conv_0 = Conv(cin, cout, kernel_size, stride, device, dtype)
         self.transposed = transposed
+        self.dtype = dtype
         self.conv_only = conv_only
         if not conv_only:
             self.PReLU_0 = nn.PReLU(1, init=0.25, device=device)
@@ -121,7 +135,11 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ConvTranspose_0(x) if self.transposed else self.Conv_0(x)
         if not self.conv_only:
-            x = self.PReLU_0(_instance_norm(x))
+            # flax GroupNorm(dtype=...): float32 statistics, output in dtype
+            x = _instance_norm(x.to(torch.float32)).to(self.dtype)
+            # flax PReLU: the slope cast to the input's type
+            slope = self.PReLU_0.weight.to(x.dtype)
+            x = torch.where(x >= 0, x, slope * x)
         return x
 
 
@@ -131,20 +149,20 @@ class ResidualUnit(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1, subunits: int = 2,
                  last_conv_only: bool = False, kernel_size: int = 3,
-                 device=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
         c = cin
         for i in range(subunits):
             conv_only = last_conv_only and i == subunits - 1
             self.add_module(f"ConvNormAct_{i}", ConvNormAct(
                 c, cout, stride if i == 0 else 1, kernel_size,
-                conv_only=conv_only, device=device))
+                conv_only=conv_only, device=device, dtype=dtype))
             c = cout
         self.subunits = subunits
         self.has_res = stride != 1 or cin != cout
         if self.has_res:
             rk = kernel_size if stride != 1 else 1
-            self.Conv_0 = Conv(cin, cout, rk, stride, device)
+            self.Conv_0 = Conv(cin, cout, rk, stride, device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
@@ -157,16 +175,19 @@ class UNet(nn.Module):
     """Recursive encoder/decoder with concatenating skips (MONAI ``UNet``).
 
     Input and output are channel-first ``(B, C, H, W, D)``; the output is
-    logits (no final activation). ``device=None`` means ``"cuda"``.
+    logits (no final activation) in ``dtype``, the compute type (parameters
+    stay float32). ``device=None`` means ``"cuda"``.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  channels: Sequence[int] = (16, 32, 64, 128, 256),
                  strides: Sequence[int] = (2, 2, 2, 2),
-                 num_res_units: int = 2, device: DeviceLike = None):
+                 num_res_units: int = 2, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.num_res_units = num_res_units
+        self.dtype = dtype
         self._counts = {"ResidualUnit": 0, "ConvNormAct": 0}
         self._plan = self._build(in_channels, out_channels, tuple(channels),
                                  tuple(strides), True, dev)
@@ -181,17 +202,20 @@ class UNet(nn.Module):
     def _down(self, cin, cout, stride, dev) -> str:
         if self.num_res_units > 0:
             return self._add("ResidualUnit", ResidualUnit(
-                cin, cout, stride, subunits=self.num_res_units, device=dev))
-        return self._add("ConvNormAct", ConvNormAct(cin, cout, stride, device=dev))
+                cin, cout, stride, subunits=self.num_res_units, device=dev,
+                dtype=self.dtype))
+        return self._add("ConvNormAct", ConvNormAct(cin, cout, stride, device=dev,
+                                                    dtype=self.dtype))
 
     def _up(self, cin, cout, stride, is_top, dev) -> Tuple[str, ...]:
         conv_only = is_top and self.num_res_units == 0
         names = [self._add("ConvNormAct", ConvNormAct(
             cin, cout, stride, transposed=True, conv_only=conv_only,
-            device=dev))]
+            device=dev, dtype=self.dtype))]
         if self.num_res_units > 0:
             names.append(self._add("ResidualUnit", ResidualUnit(
-                cout, cout, 1, subunits=1, last_conv_only=is_top, device=dev)))
+                cout, cout, 1, subunits=1, last_conv_only=is_top, device=dev,
+                dtype=self.dtype)))
         return tuple(names)
 
     def _build(self, cin, cout, channels, strides, is_top, dev):

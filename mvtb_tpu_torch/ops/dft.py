@@ -1,24 +1,36 @@
-"""DFT-by-matmul matrices and the one-axis half-spectrum transforms
-(counterpart of mvtb_tpu/ops/dft.py).
+"""DFT-by-matmul: matrices, one-axis transforms and the n-D transforms of
+the ``dft`` / ``dft_fast`` backends (counterpart of mvtb_tpu/ops/dft.py).
 
 The matrices are built in float64 with numpy exactly as the JAX package
 builds them, then rounded to float32, so both sides contract against the
-same numbers. The H-axis half DFT of the plane path is a plain large matrix
-product outside any kernel and stays on ``torch.matmul``; on the card it is
+same numbers. Complex arithmetic is written as real products; complex-input
+axes use Gauss's 3-product contraction (:func:`_gauss_dft_matrices_np`).
+
+The JAX package leaves these products to XLA, outside any Pallas kernel, so
+the port runs them on ``torch.matmul``. On the card they are
 float32-accurate only while ``torch.backends.cuda.matmul.allow_tf32`` is
 False (PyTorch's default).
+
+``precision`` is a string: ``"highest"`` contracts float32 operands;
+``"default"`` rounds every operand to bfloat16 and accumulates in float32,
+as JAX's ``Precision.DEFAULT`` does (the ``dft_fast`` backend). The n-D functions keep the JAX contracts
+(``fftn`` / ``ifftn`` / ``rfftn`` / ``irfftn``) on complex64 tensors; the
+``*_pair`` forms take and return the (re, im) float32 pair that the fused
+stylize path carries.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 # Axis lengths up to this bound use the matmul DFT.
 MATMUL_DFT_MAX_N = 4096
+
+PRECISIONS = ("highest", "default")
 
 
 def _dft_matrix_f64(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -35,6 +47,13 @@ def _dft_matrix_f64(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
         cos /= n
         sin /= n
     return cos, sin
+
+
+@lru_cache(maxsize=64)
+def _dft_matrix_np(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """float32 (cos, sin) parts of the (i)DFT matrix, computed in float64."""
+    cos, sin = _dft_matrix_f64(n, inverse)
+    return cos.astype(np.float32), sin.astype(np.float32)
 
 
 @lru_cache(maxsize=64)
@@ -76,14 +95,6 @@ def _half_idft_matrix_np(n: int) -> Tuple[np.ndarray, np.ndarray]:
             (np.sin(theta) * c).astype(np.float32))
 
 
-@lru_cache(maxsize=32)
-def _half_mats_t(n: int, inverse: bool, device: torch.device):
-    """The half matrices transposed for a left multiply, on ``device``."""
-    a, b = _half_idft_matrix_np(n) if inverse else _half_dft_matrix_np(n)
-    return (torch.from_numpy(np.ascontiguousarray(a.T)).to(device),
-            torch.from_numpy(np.ascontiguousarray(b.T)).to(device))
-
-
 def _split(x: torch.Tensor, axis: int):
     axis = axis % x.ndim
     pre = int(np.prod(x.shape[:axis], dtype=np.int64))
@@ -95,24 +106,193 @@ def half_dft_axis(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tenso
     """Real-input half-spectrum DFT over ONE axis: the ``rfft(x, axis=axis)``
     contract, returned as contiguous (re, im) float32 tensors.
 
-    The transform axis is contracted in place (``M^T @ x`` over a free
-    ``(pre, n, post)`` view), so no transpose copy is made.
+    The transform axis is contracted in place (:func:`contract`), so no
+    transpose copy is made.
     """
     x = x.to(torch.float32)
-    n = x.shape[axis % x.ndim]
-    axis, x3 = _split(x, axis)
-    cos_t, sin_t = _half_mats_t(n, False, x.device)
-    shape = x.shape[:axis] + (n // 2 + 1,) + x.shape[axis + 1:]
-    return (torch.matmul(cos_t, x3).reshape(shape),
-            torch.matmul(sin_t, x3).reshape(shape))
+    cos, sin = device_mats("half", x.shape[axis], False, x.device)
+    return contract(x, cos, axis), contract(x, sin, axis)
 
 
 def half_idft_axis_real(re: torch.Tensor, im: torch.Tensor, n: int,
                         axis: int) -> torch.Tensor:
     """Hermitian half spectrum on ONE axis -> real volume (the
     ``irfft(x, n=n, axis=axis)`` contract)."""
-    axis, re3 = _split(re, axis)
-    _, im3 = _split(im, axis)
-    cos_t, sin_t = _half_mats_t(n, True, re.device)
-    shape = re.shape[:axis] + (n,) + re.shape[axis + 1:]
-    return (torch.matmul(cos_t, re3) - torch.matmul(sin_t, im3)).reshape(shape)
+    cos_t, sin_t = device_mats("half_inv", n, True, re.device)
+    return contract(re, cos_t, axis) - contract(im, sin_t, axis)
+
+
+# --------------------------------------------------------------------------
+# Precision tiers and matrices on a device
+# --------------------------------------------------------------------------
+
+def is_fast(precision: str) -> bool:
+    """True for the single-pass bf16 tier (``"default"``); raises on an
+    unknown precision."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision == "default"
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to the nearest bfloat16 value, kept in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+@lru_cache(maxsize=128)
+def device_mats(kind: str, n: int, inverse: bool,
+                device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """float32 matrices on ``device``, each (n_in, n_out) for
+    ``out[k] = sum_j x[j] * mat[j, k]``:
+
+    * ``"full"``: (cos, sin) of the (i)DFT matrix, (n, n);
+    * ``"gauss"``: (cos, cos+sin, sin-cos), (n, n), in the order of the
+      three Gauss products ``(re+im)*cos``, ``im*(cos+sin)``, ``re*(sin-cos)``;
+    * ``"half"``: (cos, sin) of the forward half DFT, (n, n//2+1);
+    * ``"half_inv"``: (cosT, sinT) of the real-output inverse, (n//2+1, n)
+      (``inverse`` is ignored for the two half kinds).
+    """
+    if kind == "full":
+        mats = _dft_matrix_np(n, inverse)
+    elif kind == "gauss":
+        cos, smc, cps = _gauss_dft_matrices_np(n, inverse)
+        mats = (cos, cps, smc)
+    elif kind == "half":
+        mats = _half_dft_matrix_np(n)
+    elif kind == "half_inv":
+        mats = _half_idft_matrix_np(n)
+    else:
+        raise ValueError(f"unknown matrix kind {kind!r}")
+    return tuple(torch.from_numpy(m).to(device) for m in mats)
+
+
+def contract(x: torch.Tensor, mat: torch.Tensor, axis: int,
+             fast: bool = False) -> torch.Tensor:
+    """``out[..., k, ...] = sum_j x[..., j, ...] * mat[j, k]`` over ``axis``.
+
+    The last axis is a right product on the free (M, n) view; an interior
+    axis is a left product ``mat.T @ x`` on the free (pre, n, post) view, so
+    no transpose copy of ``x`` is made. ``fast`` rounds both operands to
+    bfloat16 first (float32 accumulation).
+    """
+    if fast:
+        x, mat = bf16_round(x), bf16_round(mat)
+    axis = axis % x.ndim
+    if axis == x.ndim - 1:
+        return torch.matmul(x, mat)
+    _, x3 = _split(x, axis)
+    out = torch.matmul(mat.T, x3)
+    return out.reshape(x.shape[:axis] + (mat.shape[1],) + x.shape[axis + 1:])
+
+
+def _axis_dft(re: torch.Tensor, im: Optional[torch.Tensor], axis: int,
+              inverse: bool, precision: str = "highest"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full-spectrum axis transform: two real products for a real input
+    (``im`` None), Gauss's three for a complex one."""
+    fast = is_fast(precision)
+    n = re.shape[axis]
+    if im is None:
+        cos, sin = device_mats("full", n, inverse, re.device)
+        return contract(re, cos, axis, fast), contract(re, sin, axis, fast)
+    cos, cps, smc = device_mats("gauss", n, inverse, re.device)
+    k1 = contract(re + im, cos, axis, fast)
+    return (k1 - contract(im, cps, axis, fast),
+            k1 + contract(re, smc, axis, fast))
+
+
+def _parts(x: torch.Tensor):
+    """(re, im) float32 parts of ``x``; im is None for a real input."""
+    if x.is_complex():
+        return x.real.to(torch.float32).contiguous(), x.imag.to(torch.float32).contiguous()
+    return x.to(torch.float32), None
+
+
+def _axes(axes: Sequence[int], ndim: int):
+    return [a % ndim for a in axes]
+
+
+def dft_nd(x: torch.Tensor, axes: Sequence[int],
+           precision: str = "highest") -> torch.Tensor:
+    """Forward n-D DFT over ``axes`` (unshifted): the ``fftn`` contract,
+    real or complex input, complex64 output."""
+    re, im = _parts(x)
+    for axis in _axes(axes, x.ndim):
+        re, im = _axis_dft(re, im, axis, False, precision)
+    return torch.complex(re, im)
+
+
+def idft_nd(x: torch.Tensor, axes: Sequence[int],
+            precision: str = "highest") -> torch.Tensor:
+    """Inverse n-D DFT over ``axes`` (norm="backward"): the ``ifftn``
+    contract."""
+    re, im = _parts(x)
+    for axis in _axes(axes, x.ndim):
+        re, im = _axis_dft(re, im, axis, True, precision)
+    return torch.complex(re, im)
+
+
+def idft_nd_real(x: torch.Tensor, axes: Sequence[int],
+                 precision: str = "highest") -> torch.Tensor:
+    """Real part of the inverse n-D DFT. The last axis runs the 2-product
+    real-output contraction, so its imaginary output is never computed."""
+    fast = is_fast(precision)
+    axes = _axes(axes, x.ndim)
+    re, im = _parts(x)
+    for axis in axes[:-1]:
+        re, im = _axis_dft(re, im, axis, True, precision)
+    cos, sin = device_mats("full", re.shape[axes[-1]], True, re.device)
+    out = contract(re, cos, axes[-1], fast)
+    if im is not None:
+        out = out - contract(im, sin, axes[-1], fast)
+    return out
+
+
+def rdft_nd_pair(x: torch.Tensor, axes: Sequence[int],
+                 precision: str = "highest"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rdft_nd` as an (re, im) float32 pair."""
+    fast = is_fast(precision)
+    axes = _axes(axes, x.ndim)
+    x = x.to(torch.float32)
+    cos, sin = device_mats("half", x.shape[axes[-1]], False, x.device)
+    re, im = contract(x, cos, axes[-1], fast), contract(x, sin, axes[-1], fast)
+    for axis in axes[:-1]:
+        re, im = _axis_dft(re, im, axis, False, precision)
+    return re, im
+
+
+def irdft_nd_real_pair(re: torch.Tensor, im: torch.Tensor, s: Sequence[int],
+                       axes: Sequence[int], precision: str = "highest"
+                       ) -> torch.Tensor:
+    """:func:`irdft_nd_real` on an (re, im) float32 pair."""
+    fast = is_fast(precision)
+    axes = _axes(axes, re.ndim)
+    for axis in axes[:-1]:
+        re, im = _axis_dft(re, im, axis, True, precision)
+    cos_t, sin_t = device_mats("half_inv", int(s[-1]), True, re.device)
+    return (contract(re, cos_t, axes[-1], fast)
+            - contract(im, sin_t, axes[-1], fast))
+
+
+def rdft_nd(x: torch.Tensor, axes: Sequence[int],
+            precision: str = "highest") -> torch.Tensor:
+    """Real-input n-D DFT with the half spectrum on the LAST of ``axes``:
+    the ``rfftn`` contract. The last axis is a 2-product contraction against
+    the (n, n//2+1) half matrix, the rest full complex DFTs."""
+    return torch.complex(*rdft_nd_pair(x, axes, precision))
+
+
+def irdft_nd_real(x: torch.Tensor, s: Sequence[int], axes: Sequence[int],
+                  precision: str = "highest") -> torch.Tensor:
+    """Inverse of :func:`rdft_nd`, Hermitian half spectrum -> real volume:
+    the ``irfftn(x, s=s, axes=axes)`` contract."""
+    re, im = _parts(x)
+    if im is None:
+        im = torch.zeros_like(re)
+    return irdft_nd_real_pair(re, im, s, axes, precision)
+
+
+def use_matmul_dft(spatial: Sequence[int]) -> bool:
+    """Matmul DFT for every axis within the bound."""
+    return all(n <= MATMUL_DFT_MAX_N for n in spatial)

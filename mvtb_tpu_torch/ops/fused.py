@@ -7,10 +7,23 @@ draws, :func:`sample_draws` makes them from a ``torch.Generator``, and
 :func:`stylize_batch` takes either. Handing the same draws to both packages
 makes their outputs comparable element by element.
 
-Only the plane backends are ported so far (``fft_backend="plane"`` and
-``"plane_fast"`` with a plane-eligible config); they run the fused plane
-kernel of :mod:`mvtb_tpu_torch.ops.fused_plane`. Every other backend or
-config raises ``NotImplementedError``.
+Two paths, as in the JAX package:
+
+* the plane backends (``"plane"``, ``"plane_fast"``) with a plane-eligible
+  config run the fused plane kernel of :mod:`.fused_plane`;
+* everything else runs the general half-spectrum path, batched over B with
+  per-sample parameters broadcast: ``rfftn`` over (H, W, D) with the half
+  axis LAST (D) -> the multiplicative weights (Gibbs with its even-axis
+  mirror average, disk, wrap) -> the one-pass spike / plane-wave point
+  writes -> ``irfftn`` -> image-domain salt & pepper. Its backends are
+  ``"dft"`` / ``"dft_fast"`` (:mod:`.dft` on ``torch.matmul``),
+  ``"dft_pallas"`` (the hand-written axis kernels of :mod:`.pallas_dft`) and
+  ``"xla"`` (``torch.fft``); ``"auto"`` picks ``"dft"`` on a CUDA device and
+  ``"xla"`` on the CPU.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: the zero-fill stage, the data-dependent spike range, the complex
+path, the ``"hybrid"`` backend and ``n_dims=2``.
 """
 
 from __future__ import annotations
@@ -21,12 +34,16 @@ from typing import Optional, Tuple, Union
 import torch
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
+from mvtb_tpu_torch.ops import dft as _dft
 from mvtb_tpu_torch.ops.masks import shell_flat_indices
 
 ParamSpec = Union[float, Tuple[float, float]]  # fixed value or U[lo,hi] range
 
-# Where each not-yet-ported path is queued (ROADMAP.md, section 1).
-_TODO_FUSED = "ROADMAP.md section 1, item 2 (fused stylization, pure-torch path)"
+# Where the not-yet-ported paths are queued (ROADMAP.md, section 1).
+_TODO_FUSED = "ROADMAP.md section 1, item 2 (fused stylization, the rest)"
+
+BACKENDS = ("xla", "dft", "dft_fast", "hybrid", "dft_pallas", "plane",
+            "plane_fast")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,19 +209,309 @@ def sample_draws(cfg: StylizeConfig, spatial, B: int, C: int,
     return d
 
 
-def _check_ported(cfg: StylizeConfig, spatial) -> None:
-    from mvtb_tpu_torch.ops.fused_plane import plane_kernel_eligible
+def _resolve_backend(backend: str, spatial, device: DeviceLike) -> str:
+    """Resolve ``StylizeConfig.fft_backend`` to a concrete backend.
 
-    if cfg.fft_backend not in ("plane", "plane_fast"):
+    ``"auto"`` picks the all-axis matmul DFT (``"dft"``) on a CUDA device
+    when every spatial dim is within :data:`~.dft.MATMUL_DFT_MAX_N`, and
+    ``torch.fft`` (``"xla"``) otherwise, on the CPU too, as the JAX package
+    does on its CPU backend.
+    """
+    if backend != "auto":
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown fft_backend {backend!r}")
+        return backend
+    if torch.device(device).type == "cuda" and _dft.use_matmul_dft(spatial):
+        return "dft"
+    return "xla"
+
+
+def _rfft_eligible(cfg: StylizeConfig, spatial) -> bool:
+    """True when the k-space part runs on the rfft half spectrum: every
+    k-space stage does (the JAX package's seam of the same name; its
+    complex path is not ported)."""
+    del spatial
+    return cfg.kspace_needed
+
+
+def _check_general(cfg: StylizeConfig, spatial, backend: str) -> None:
+    """Raise for what the general path does not implement yet."""
+    if backend == "hybrid":
         raise NotImplementedError(
-            f"fft_backend={cfg.fft_backend!r}: only 'plane' and 'plane_fast' "
-            f"are ported; the rest is {_TODO_FUSED}, and 'dft_pallas' also "
-            "waits for ROADMAP.md section 2, items 2-4")
-    if not plane_kernel_eligible(cfg, spatial):
+            "fft_backend='hybrid' (per-axis torch.fft / matmul DFT): " + _TODO_FUSED)
+    if cfg.zf_p is not None:
         raise NotImplementedError(
-            "this config is not plane-kernel eligible (2D, zero-fill, "
-            "data-dependent spike range, no k-space stage or an axis over "
-            f"the matmul-DFT bound); its path is {_TODO_FUSED}")
+            "the zero-fill stage (zf_p) with its pair-iid rule: " + _TODO_FUSED)
+    if cfg.spike and cfg.spike_range is None:
+        raise NotImplementedError(
+            "data-dependent spike range (spike_range=None): " + _TODO_FUSED)
+    if cfg.kspace_needed and not _rfft_eligible(cfg, spatial):
+        raise NotImplementedError("the complex (full-spectrum) path: " + _TODO_FUSED)
+
+
+def _salt_and_pepper(out: torch.Tensor, draws: StageDraws) -> torch.Tensor:
+    """Image-domain salt & pepper with per-sample extrema over (C, *spatial)."""
+    draws.require("sap_p", "sap_gate", "sap_u")
+    B = out.shape[0]
+    view = (B,) + (1,) * (out.ndim - 1)
+    p = torch.where(draws.sap_gate, draws.sap_p.to(out.dtype),
+                    torch.zeros((), dtype=out.dtype, device=out.device))
+    p = p.view(view)
+    flat = out.reshape(B, -1)
+    lo = (flat.amin(dim=1) / 2).view(view)
+    hi = (flat.amax(dim=1) / 2).view(view)
+    u = draws.sap_u
+    styled = torch.where(u <= p / 2, lo, out)
+    return torch.where((u > p / 2) & (u <= p), hi, styled)
+
+
+def _forward(x: torch.Tensor, backend: str):
+    """(re, im) of ``rfftn`` over the three spatial axes, half axis last."""
+    axes = (2, 3, 4)
+    if backend == "xla":
+        k = torch.fft.rfftn(x.to(torch.float32), dim=axes)
+        return k.real.contiguous(), k.imag.contiguous()
+    if backend == "dft_pallas":
+        from mvtb_tpu_torch.ops import pallas_dft as _pdft
+
+        return _pdft.rdft_nd_pair(x, axes, "highest")
+    return _dft.rdft_nd_pair(x, axes, "default" if backend == "dft_fast"
+                             else "highest")
+
+
+def _inverse(re: torch.Tensor, im: torch.Tensor, spatial, backend: str):
+    """``irfftn`` of the (re, im) half spectrum back to a real volume."""
+    axes = (2, 3, 4)
+    if backend == "xla":
+        return torch.fft.irfftn(torch.complex(re, im), s=spatial, dim=axes)
+    if backend == "dft_pallas":
+        from mvtb_tpu_torch.ops import pallas_dft as _pdft
+
+        return _pdft.irdft_nd_real_pair(re, im, spatial, axes, "highest")
+    return _dft.irdft_nd_real_pair(re, im, spatial, axes,
+                                   "default" if backend == "dft_fast" else "highest")
+
+
+def _weight_parts(cfg: StylizeConfig, spatial, draws: StageDraws):
+    """The multiplicative weight stages as callables ``part(idx, view)``:
+    ``idx`` holds per-axis integer index tensors (a broadcast grid, or
+    (B, C) point locations) and ``view`` the shape that broadcasts a (B,)
+    parameter against them. The same float32 arithmetic in the same order
+    as the JAX package's ``gibbs_part`` / ``disk_part`` / ``wrap_part``, so
+    the grid weight and the weight at a point agree bit for bit. Returns
+    ``(parts, wrap_val)``, ``wrap_val`` the gated (B,) wrap alpha or None."""
+    f32 = torch.float32
+    nd = len(spatial)
+    parts = []
+
+    def ones_like(t):
+        return torch.ones((), dtype=f32, device=t.device)
+
+    if cfg.gibbs_alpha is not None:
+        draws.require("gibbs_alpha", "gibbs_gate")
+        # GibbsNoise center is (n-1)/2: shifted-center delta (n-1)/2 - n//2
+        deltas = tuple((n - 1) / 2 - n // 2 for n in spatial)
+        r_g = (1.0 - draws.gibbs_alpha.to(f32)) * max(spatial) * (2.0 ** 0.5) / 2.0
+        r2_g = r_g * r_g
+        g_g = draws.gibbs_gate
+        sym = any(d != 0 for d in deltas)
+
+        def gibbs_part(idx, view):
+            dist = None
+            for axis in range(nd):
+                off = _off_of(idx[axis].to(f32), spatial[axis]) - deltas[axis]
+                sq = off * off
+                dist = sq if dist is None else dist + sq
+            m = (dist <= r2_g.view(view)).to(f32)
+            if sym:
+                # even axes make the (n-1)/2-centred mask mod-n asymmetric;
+                # the half spectrum carries its mirror average. The mirror
+                # of offset o is -o, except the self-mirrored Nyquist
+                # offset -n/2 of an even axis.
+                dist_m = None
+                for axis in range(nd):
+                    n = spatial[axis]
+                    off = _off_of(idx[axis].to(f32), n)
+                    off_m = -off
+                    if n % 2 == 0:
+                        off_m = torch.where(off == -(n // 2), off, off_m)
+                    dd = off_m - deltas[axis]
+                    sq = dd * dd
+                    dist_m = sq if dist_m is None else dist_m + sq
+                m = (m + (dist_m <= r2_g.view(view)).to(f32)) * 0.5
+            return torch.where(g_g.view(view), m, ones_like(m))
+
+        parts.append(gibbs_part)
+
+    if cfg.disk_r is not None:
+        draws.require("disk_r", "disk_gate")
+        r_d = draws.disk_r.to(f32)
+        r2_d = r_d * r_d
+        g_d = draws.disk_gate
+
+        def disk_part(idx, view):
+            dist = None
+            for axis in range(nd):
+                off = _off_of(idx[axis].to(f32), spatial[axis]) - 0.0
+                sq = off * off
+                dist = sq if dist is None else dist + sq
+            inside = dist < r2_d.view(view)
+            m = (~inside if cfg.disk_inside_off else inside).to(f32)
+            return torch.where(g_d.view(view), m, ones_like(m))
+
+        parts.append(disk_part)
+
+    wrap_val = None
+    if cfg.wrap_alpha is not None:
+        draws.require("wrap_alpha", "wrap_gate")
+        one = torch.ones((), dtype=f32, device=draws.wrap_alpha.device)
+        wrap_val = torch.where(draws.wrap_gate, draws.wrap_alpha.to(f32), one)
+
+        def wrap_part(idx, view):
+            w = None
+            for d in range(nd):
+                n = spatial[d]
+                c = n // 2
+                i = idx[d]
+                s = torch.where(i < n - c, i + c, i + c - n)  # shifted
+                wd = torch.where(s % 2 == 1, wrap_val.view(view), one)
+                w = wd if w is None else w * wd
+            return w
+
+        parts.append(wrap_part)
+    return parts, wrap_val
+
+
+def _weight_of(parts, idx, view):
+    w = None
+    for part in parts:
+        f = part(idx, view)
+        w = f if w is None else w * f
+    return w
+
+
+def _stylize_general(x: torch.Tensor, cfg: StylizeConfig, draws: StageDraws,
+                     backend: str) -> torch.Tensor:
+    """The general half-spectrum path of ``stylize_kspace`` on a
+    (B, C, H, W, D) batch (JAX: mvtb_tpu/ops/fused.py, the ``use_rfft``
+    branch with its one-pass point writes)."""
+    B, C = x.shape[:2]
+    spatial = tuple(int(n) for n in x.shape[2:])
+    nd = len(spatial)
+    dev = x.device
+    out = x
+    if cfg.kspace_needed:
+        re, im = _forward(x, backend)
+        grid = spatial[:-1] + (spatial[-1] // 2 + 1,)
+        parts, wrap_val = _weight_parts(cfg, spatial, draws)
+        deltas = (_point_deltas(cfg, spatial, grid, draws, parts, wrap_val, re, im)
+                  if cfg.spike or cfg.plane_axes is not None else [])
+        if parts:
+            iotas = tuple(torch.arange(n, device=dev).view(
+                tuple(n if a == d else 1 for a in range(nd)))
+                for d, n in enumerate(grid))
+            w = _weight_of(parts, iotas, (B,) + (1,) * nd)
+            w = w.expand((B,) + grid)[:, None]
+            re, im = re * w, im * w
+        bi = torch.arange(B, device=dev)[:, None]
+        ci = torch.arange(C, device=dev)[None, :]
+        for locs, d_re, d_im in deltas:  # spike, then plane wave
+            idx = (bi, ci) + tuple(locs[..., d] for d in range(nd))
+            re = re.index_put(idx, d_re, accumulate=True)
+            im = im.index_put(idx, d_im, accumulate=True)
+        out = _inverse(re, im, spatial, backend).to(x.dtype)
+    if cfg.sap_p is not None:
+        out = _salt_and_pepper(out, draws)
+    return out
+
+
+def _point_deltas(cfg: StylizeConfig, spatial, grid, draws: StageDraws,
+                  parts, wrap_val, re: torch.Tensor, im: torch.Tensor):
+    """The spike and plane-wave writes as ``[(locs, d_re, d_im), ...]`` in
+    stage order: (B, C, 3) canonical half-grid points and the (B, C) deltas
+    to add there. Every point is read from the RAW spectrum and weighted
+    with the grid weight's own arithmetic at that point; the plane wave
+    reads what a spike at the same point of the same channel wrote."""
+    B, C = re.shape[:2]
+    nd = len(spatial)
+    f32 = torch.float32
+    dev = re.device
+    one = torch.ones((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    bi = torch.arange(B, device=dev)[:, None]
+    ci = torch.arange(C, device=dev)[None, :]
+
+    def wrap_at(shifted):  # (B, C, 3) shifted-space points
+        f = one
+        if wrap_val is None:
+            return f
+        for d in range(nd):
+            f = f * torch.where(shifted[..., d] % 2 == 1, wrap_val[:, None], one)
+        return f
+
+    def to_raw(shifted):
+        return torch.stack([_to_raw_index(shifted[..., d], spatial[d])
+                            for d in range(nd)], dim=-1)
+
+    def canon(raw):
+        """Raw full-grid points -> the stored half grid: a point whose last
+        index lies in the dropped half mirrors through ``-s mod n``."""
+        in_half = raw[..., -1] < grid[-1]
+        locs = torch.stack([torch.where(in_half, raw[..., d],
+                                        (spatial[d] - raw[..., d]) % spatial[d])
+                            for d in range(nd)], dim=-1)
+        return locs, in_half
+
+    def read(locs):
+        """Weighted spectrum at the points; an exact zero reads as +0
+        (JAX's ``canon_zero``: the phase of -0 would be pi)."""
+        idx = (bi, ci) + tuple(locs[..., d] for d in range(nd))
+        r, i = re[idx], im[idx]
+        if parts:
+            wa = _weight_of(parts, tuple(locs[..., d] for d in range(nd)), (B, 1))
+            r, i = r * wa, i * wa
+        both0 = (r == 0) & (i == 0)
+        return torch.where(both0, zero, r), torch.where(both0, zero, i)
+
+    def delta(r, i, locs, in_half, mag, gates):
+        """``H[c] += (w - k[s]) * scale``: ``k[s]`` is the read, conjugated
+        for a mirrored point; ``w`` has magnitude ``mag`` and the phase of
+        ``k[s]``; scale 1 on the self-mirrored last-axis bins (0 and n/2),
+        else 1/2; the delta is conjugated back for a mirrored point."""
+        old_re, old_im = r, torch.where(in_half, i, -i)
+        ang = torch.atan2(old_im, old_re)
+        new_re, new_im = mag * torch.cos(ang), mag * torch.sin(ang)
+        z_self = (locs[..., -1] == 0) | (2 * locs[..., -1] == spatial[-1])
+        scale = torch.where(z_self, one, 0.5 * one)
+        d_re = (new_re - old_re) * scale
+        d_im = (new_im - old_im) * scale
+        d_im = torch.where(in_half, d_im, -d_im)
+        return torch.where(gates, d_re, zero), torch.where(gates, d_im, zero)
+
+    out = []
+    spike = None
+    if cfg.spike:
+        draws.require("spike_shifted", "spike_vals", "spike_gates")
+        sh = draws.spike_shifted.long()
+        locs, in_half = canon(to_raw(sh))
+        mag = torch.exp(draws.spike_vals.to(f32)) * wrap_at(sh)
+        d_re, d_im = delta(*read(locs), locs, in_half, mag, draws.spike_gates)
+        spike = (locs, d_re, d_im)
+        out.append(spike)
+    if cfg.plane_axes is not None:
+        draws.require("plane_shifted", "plane_gate")
+        sh = draws.plane_shifted.long()[:, None, :].expand(B, C, nd)
+        locs, in_half = canon(to_raw(sh))
+        mag = torch.exp(torch.tensor(cfg.plane_intensity, dtype=f32, device=dev))
+        mag = mag * wrap_at(sh)
+        r, i = read(locs)
+        if spike is not None:
+            coll = (locs == spike[0]).all(dim=-1)
+            r = r + torch.where(coll, spike[1], zero)
+            i = i + torch.where(coll, spike[2], zero)
+        gates = draws.plane_gate[:, None].expand(B, C)
+        out.append((locs, *delta(r, i, locs, in_half, mag, gates)))
+    return out
 
 
 def stylize_batch(x: torch.Tensor, cfg: StylizeConfig,
@@ -218,21 +525,31 @@ def stylize_batch(x: torch.Tensor, cfg: StylizeConfig,
     ``"cuda"``; ``x`` and ``draws`` are moved there.
     """
     dev = resolve_device(device)
-    x = x.to(dev)
     nd = cfg.n_dims
+    if nd != 3:
+        raise NotImplementedError(f"n_dims={nd} (2D stylization): " + _TODO_FUSED)
+    x = x.to(dev)
     if x.ndim != nd + 2:
         raise ValueError(
             f"expected (B, C, *spatial) with {nd} spatial dims, got {tuple(x.shape)}")
     if not cfg.any_enabled:
         return x
     spatial = tuple(x.shape[2:])
-    _check_ported(cfg, spatial)
+    backend = _resolve_backend(cfg.fft_backend, spatial, dev)
+    if backend in ("plane", "plane_fast"):
+        from mvtb_tpu_torch.ops import fused_plane
+
+        if fused_plane.plane_kernel_eligible(cfg, spatial):
+            if draws is None:
+                draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
+                                     generator=generator, device=dev)
+            return fused_plane.stylize_kspace_plane(x, cfg, draws.to(dev))
+        backend = "dft_fast" if backend == "plane_fast" else "dft"
+    _check_general(cfg, spatial, backend)
     if draws is None:
         draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
                              generator=generator, device=dev)
-    from mvtb_tpu_torch.ops.fused_plane import stylize_kspace_plane
-
-    return stylize_kspace_plane(x, cfg, draws.to(dev))
+    return _stylize_general(x, cfg, draws.to(dev), backend)
 
 
 def stylize_kspace(x: torch.Tensor, cfg: StylizeConfig,

@@ -31,7 +31,7 @@ import torch
 
 from mvtb_tpu_torch.ops import dft as _dft
 from mvtb_tpu_torch.ops.fused import (StageDraws, StylizeConfig, _off_of,
-                                      _to_raw_index)
+                                      _salt_and_pepper, _to_raw_index)
 
 # Bits of the kernel's ``flags`` argument (csrc/fused_plane.cu).
 _F_GIBBS, _F_GIBBS_SYM, _F_DISK, _F_INSIDE_OFF, _F_WRAP = 1, 2, 4, 8, 16
@@ -398,22 +398,6 @@ def plane_params(cfg: StylizeConfig, spatial, draws: StageDraws, B: int,
     return (flags, wparams.contiguous(), locs.contiguous(),
             vals.contiguous(), gates.contiguous(), conjs.contiguous(),
             scales.contiguous())
-
-
-def _salt_and_pepper(out: torch.Tensor, draws: StageDraws) -> torch.Tensor:
-    """Image-domain salt & pepper with per-sample extrema over (C, *spatial)."""
-    draws.require("sap_p", "sap_gate", "sap_u")
-    B = out.shape[0]
-    view = (B,) + (1,) * (out.ndim - 1)
-    p = torch.where(draws.sap_gate, draws.sap_p.to(out.dtype),
-                    torch.zeros((), dtype=out.dtype, device=out.device))
-    p = p.view(view)
-    flat = out.reshape(B, -1)
-    lo = (flat.amin(dim=1) / 2).view(view)
-    hi = (flat.amax(dim=1) / 2).view(view)
-    u = draws.sap_u
-    styled = torch.where(u <= p / 2, lo, out)
-    return torch.where((u > p / 2) & (u <= p), hi, styled)
 
 
 def stylize_kspace_plane(x: torch.Tensor, cfg: StylizeConfig,

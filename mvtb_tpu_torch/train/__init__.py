@@ -1,5 +1,11 @@
 """Training and evaluation steps of the port (counterpart of mvtb_tpu/train)."""
 
-from mvtb_tpu_torch.train.seg import EpochMetrics, seg_eval_step
+from mvtb_tpu_torch.train.losses import bce_with_logits, dice_loss, mse
+from mvtb_tpu_torch.train.seg import (EpochMetrics, ReferenceAmsgrad, SegState,
+                                      create_seg_state, reference_optimizer,
+                                      seg_eval_step, seg_train_step,
+                                      train_segmentation)
 
-__all__ = ["EpochMetrics", "seg_eval_step"]
+__all__ = ["EpochMetrics", "ReferenceAmsgrad", "SegState", "bce_with_logits",
+           "create_seg_state", "dice_loss", "mse", "reference_optimizer",
+           "seg_eval_step", "seg_train_step", "train_segmentation"]

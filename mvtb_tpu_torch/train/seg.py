@@ -1,22 +1,180 @@
-"""Segmentation evaluation (counterpart of mvtb_tpu/train/seg.py).
+"""Segmentation training and evaluation (counterpart of
+mvtb_tpu/train/seg.py).
 
-Ported so far: :func:`seg_eval_step`, the corrupted-validation step (fused
-k-space stylization -> UNet forward -> sigmoid threshold -> Dice), and
-:class:`EpochMetrics`. The training step waits for the next slice
-(ROADMAP.md).
+The training step is the reference's hot loop: fused k-space stylization
+of the batch (outside the gradient) -> UNet forward and backward ->
+``dice_loss`` -> optimizer step. :func:`reference_optimizer` is the JAX
+package's ``optax.chain(add_decayed_weights(1e-5), amsgrad(1e-4))``
+written out. It is NOT ``torch.optim.Adam(amsgrad=True)``: optax keeps the
+running max of the BIAS-CORRECTED second moment, torch the max of the raw
+moment, corrected afterwards, so the two part after the first step (a
+gradient of 1 then 0 gives a step-2 denominator of 1.0 in optax and 0.707
+in torch).
+
+The evaluation step is :func:`seg_eval_step` (corrupted validation), with
+:class:`EpochMetrics`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.eval.dice import dice_scores, threshold_predictions
 from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig, stylize_batch
+from mvtb_tpu_torch.train.losses import dice_loss
+
+
+# optax.amsgrad's defaults, which the reference keeps
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+class ReferenceAmsgrad(torch.optim.Optimizer):
+    """``optax.chain(add_decayed_weights(wd), amsgrad(lr))``, with optax's
+    b1 = 0.9, b2 = 0.999 and eps = 1e-8 (outside the square root).
+
+    Per parameter and step t (from 1), in float32:
+
+        g = grad + wd * p                      (coupled L2)
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * g**2 + b2 * nu
+        nu_max = max(nu_max, nu / (1 - b2**t))
+        p = p - lr * (mu / (1 - b1**t)) / (sqrt(nu_max) + eps)
+
+    The state of each parameter holds ``mu``, ``nu``, ``nu_max`` and the
+    step ``count``, as optax's ``ScaleByAmsgradState``.
+    """
+
+    def __init__(self, params, lr: float = 1e-4, weight_decay: float = 1e-5):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                    st["nu_max"] = torch.zeros_like(p)
+                st["count"] += 1
+                t = st["count"]
+                g = p.grad + wd * p
+                st["mu"] = (1 - B1) * g + B1 * st["mu"]
+                st["nu"] = (1 - B2) * (g * g) + B2 * st["nu"]
+                # optax's bias corrections: 1 - decay**count in float32,
+                # handed to the division as the exact float32 scalar (no
+                # host-to-device copy per parameter)
+                bc1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** t)
+                bc2 = float(1 - torch.tensor(B2, dtype=torch.float32) ** t)
+                mu_hat = st["mu"] / bc1
+                nu_hat = st["nu"] / bc2
+                st["nu_max"] = torch.maximum(st["nu_max"], nu_hat)
+                p.add_((-lr) * (mu_hat / (torch.sqrt(st["nu_max"]) + EPS)))
+        return loss
+
+
+def reference_optimizer(params: Iterable, lr: float = 1e-4,
+                        weight_decay: float = 1e-5) -> ReferenceAmsgrad:
+    """The reference's optimizer (``baseline.py:209-210``): Adam(lr) with
+    amsgrad and coupled L2 weight decay, computed as optax computes it
+    (:class:`ReferenceAmsgrad`)."""
+    return ReferenceAmsgrad(params, lr=lr, weight_decay=weight_decay)
+
+
+@dataclasses.dataclass
+class SegState:
+    """Model, optimizer and the count of steps taken (the port's
+    counterpart of the flax ``TrainState``; updated in place)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def create_seg_state(model: torch.nn.Module,
+                     optimizer: Optional[torch.optim.Optimizer] = None,
+                     device: DeviceLike = None) -> SegState:
+    """Move ``model`` to ``device`` (None means ``"cuda"``) and pair it with
+    ``optimizer``, by default :func:`reference_optimizer` over its
+    parameters. Any optimizer works, as the JAX function takes any ``tx``."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+    if optimizer is None:
+        optimizer = reference_optimizer(model.parameters())
+    return SegState(model=model, optimizer=optimizer)
+
+
+def seg_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,
+                   stylize_cfg: Optional[StylizeConfig] = None,
+                   augment_label: bool = False, remat: bool = False,
+                   draws: Optional[StageDraws] = None,
+                   label_draws: Optional[StageDraws] = None,
+                   generator: Optional[torch.Generator] = None,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """One forward, backward and update step; returns the (detached) loss.
+
+    ``image`` and ``label`` are channel-first ``(B, C, *spatial)``.
+    ``stylize_cfg`` corrupts the image first, outside the gradient (and the
+    label too, with its own draws, when ``augment_label``); ``draws`` /
+    ``label_draws`` fix the random parameters, else they come from
+    ``generator``. ``remat`` recomputes the forward during the backward
+    (``torch.utils.checkpoint``), trading compute for activation memory.
+    ``device=None`` means ``"cuda"``; the state must already live there.
+    """
+    dev = resolve_device(device)
+    image, label = image.to(dev), label.to(dev)
+    if stylize_cfg is not None and stylize_cfg.any_enabled:
+        image = stylize_batch(image, stylize_cfg, draws=draws,
+                              generator=generator, device=dev)
+        if augment_label:
+            label = stylize_batch(label, stylize_cfg, draws=label_draws,
+                                  generator=generator, device=dev)
+    model, opt = state.model, state.optimizer
+    opt.zero_grad(set_to_none=True)
+    if remat:
+        logits = checkpoint(model, image, use_reentrant=False)
+    else:
+        logits = model(image)
+    loss = dice_loss(logits, label)
+    loss.backward()
+    opt.step()
+    state.step += 1
+    return loss.detach()
+
+
+def train_segmentation(state: SegState, data_iter, num_steps: int,
+                       stylize_cfg: Optional[StylizeConfig] = None,
+                       generator: Optional[torch.Generator] = None,
+                       log_every: int = 0,
+                       log_fn: Callable[[str], None] = print,
+                       device: DeviceLike = None) -> List[float]:
+    """Simple host loop driving :func:`seg_train_step` over ``(image,
+    label)`` pairs from ``data_iter``; returns the per-step losses. The
+    losses are read back once at the end (or at each log line), so the
+    loop does not wait for the card every step."""
+    losses = []
+    for step in range(num_steps):
+        image, label = next(data_iter)
+        loss = seg_train_step(state, image, label, stylize_cfg,
+                              generator=generator, device=device)
+        losses.append(loss)
+        if log_every and (step + 1) % log_every == 0:
+            log_fn(f"step {step + 1}/{num_steps} loss {float(loss):.4f}")
+    return [float(l) for l in losses]
 
 
 @torch.no_grad()

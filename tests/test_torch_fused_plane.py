@@ -222,12 +222,15 @@ def test_eligibility_has_no_vmem_bound():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(disk_r=6.0, fft_backend="dft"),
-    dict(disk_r=6.0, fft_backend="auto"),
+    dict(disk_r=6.0, fft_backend="hybrid"),
+    dict(disk_r=6.0, zf_p=0.3, fft_backend="dft"),
     dict(disk_r=6.0, zf_p=0.3, fft_backend="plane"),
     dict(spike=True, fft_backend="plane_fast"),
+    dict(spike=True, fft_backend="dft_pallas"),
+    dict(n_dims=2, disk_r=4.0, fft_backend="dft"),
 ])
 def test_unported_paths_raise(kw):
-    x = torch.zeros(1, 1, 16, 12, 10)
+    cfg = tfused.StylizeConfig(**kw)
+    x = torch.zeros((1, 1) + (16, 12, 10)[:cfg.n_dims])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.stylize_batch(x, tfused.StylizeConfig(**kw), device="cpu")
+        tfused.stylize_batch(x, cfg, device="cpu")

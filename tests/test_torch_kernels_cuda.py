@@ -6,15 +6,16 @@ These tests import no JAX, so they run where the port runs:
 
 Without a CUDA device they skip (a CUDA kernel has no CPU mode). Inputs
 are drawn through the port's own path; tolerances are relative to the
-output's max: 1e-5 for ``plane`` (float32 on both sides, another summation
-order) and 2e-2 for ``plane_fast`` (bf16 operands on both sides; an
+output's max: 1e-5 for ``plane`` and the axis kernels' ``highest`` tier
+(float32 on both sides, another summation order) and 2e-2 for
+``plane_fast`` and ``default`` (bf16 operands on both sides; an
 intermediate may round to the neighbouring bf16 value).
 """
 
 import pytest
 import torch
 
-from mvtb_tpu_torch.ops import dft, fused, fused_plane
+from mvtb_tpu_torch.ops import dft, fused, fused_plane, pallas_dft
 
 CASES = [
     dict(disk_r=6.0),
@@ -85,3 +86,96 @@ def test_plane_kernel_rejects_bad_input(cuda_device):
     k = torch.zeros(2, 5, 6, 4, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError):
         fused_plane.plane_stylize_half(k, k, (8, 6, 4), flags, *params)
+
+
+AXIS_TOL = {"highest": 1e-5, "default": 2e-2}
+# (lane view (M, n), sublane view (A, n, B)): odd, even, and the ragged
+# extents of the train and bench shapes
+AXIS_VIEWS = [((7, 13), (3, 7, 11)), ((130, 64), (5, 128, 33)),
+              ((75, 155), (2, 240, 78))]
+
+
+def _axis_case(body, lane, view, g, dev):
+    n = view[-1] if lane else view[1]
+    if body == "r2c":
+        mats = dft.device_mats("half" if lane else "full", n, False, dev)
+    elif body == "c2r":
+        n = view[-1] if lane else view[1]
+        mats = (dft.device_mats("half_inv", 2 * (n - 1) + 1, True, dev) if lane
+                else dft.device_mats("full", n, True, dev))
+    else:
+        mats = dft.device_mats("gauss", n, False, dev)
+    n_in = pallas_dft.ARITY[body][0]
+    ins = [torch.randn(view, generator=g, device=dev) for _ in range(n_in)]
+    return ins, mats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("lane", [True, False], ids=["lane", "sublane"])
+@pytest.mark.parametrize("body", ["r2c", "c2c", "c2r"])
+def test_axis_kernel_matches_plain(body, lane, precision, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+    for views in AXIS_VIEWS:
+        view = views[0] if lane else views[1]
+        ins, mats = _axis_case(body, lane, view, g, cuda_device)
+        before = pallas_dft.launches[body]
+        got = call(body, ins, mats, precision)
+        assert pallas_dft.launches[body] == before + 1
+        ref = pallas_dft.plain(body, lane, ins, mats, precision)
+        torch.cuda.synchronize()
+        assert len(got) == len(ref) == pallas_dft.ARITY[body][2]
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape
+            assert rel_err(a, b) <= AXIS_TOL[precision], (body, lane, view)
+
+
+@pytest.mark.cuda
+def test_axis_transforms_match_torch_fft(cuda_device):
+    x = torch.randn(2, 12, 10, 9, device=cuda_device)
+    k = pallas_dft.rdft_nd(x, (1, 2, 3))
+    assert rel_err(k, torch.fft.rfftn(x, dim=(1, 2, 3))) < 1e-5
+    back = pallas_dft.irdft_nd_real(k, x.shape[1:], (1, 2, 3))
+    assert rel_err(back, x) < 1e-5
+    z = torch.complex(x, x.flip(0))
+    assert rel_err(pallas_dft.dft_nd(z, (0, 2)), torch.fft.fftn(z, dim=(0, 2))) < 1e-5
+    assert rel_err(pallas_dft.idft_nd(z, (1, 3)), torch.fft.ifftn(z, dim=(1, 3))) < 1e-5
+    assert rel_err(pallas_dft.idft_nd_real(z, (1, 2)),
+                   torch.fft.ifftn(z, dim=(1, 2)).real) < 1e-5
+
+
+@pytest.mark.cuda
+def test_axis_kernel_rejects_bad_input(cuda_device):
+    mats = dft.device_mats("gauss", 8, False, cuda_device)
+    x = torch.zeros(4, 8, device=cuda_device)
+    with pytest.raises(ValueError):
+        pallas_dft.lane_call("c2c", [x, x.double()], mats)
+    with pytest.raises(ValueError):
+        pallas_dft.lane_call("c2c", [x, x[:, :4]], mats)
+    with pytest.raises(ValueError):
+        pallas_dft.lane_call("c2c", [x.t(), x.t()], mats)
+    with pytest.raises(ValueError):
+        pallas_dft.sub_call("c2c", [x, x], mats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dft_pallas", "dft", "xla"])
+def test_general_stylize_on_the_card_matches_cpu(backend, cuda_device):
+    # the same draws on both devices; on the card dft_pallas runs the axis
+    # kernels (1 r2c, 4 c2c, 1 c2r per call), on the CPU their plain versions
+    kw = dict(disk_r=(3.0, 6.0), plane_axes=(6.0, 5.0, 4.0), plane_intensity=12.0,
+              spike=True, spike_range=(10.0, 11.0), wrap_alpha=0.5,
+              gibbs_alpha=0.3, sap_p=0.05)
+    cfg = fused.StylizeConfig(**kw, fft_backend=backend)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 3, 20, 18, 15, generator=g)
+    draws = fused.sample_draws(cfg, (20, 18, 15), 2, 3, generator=g, device="cpu")
+    before = dict(pallas_dft.launches)
+    got = fused.stylize_batch(x, cfg, draws=draws, device=cuda_device)
+    torch.cuda.synchronize()
+    ref = fused.stylize_batch(x, cfg, draws=draws, device="cpu")
+    if backend == "dft_pallas":
+        assert {k: pallas_dft.launches[k] - before[k] for k in before} == \
+            {"r2c": 1, "c2c": 4, "c2r": 1}
+    assert rel_err(got.cpu(), ref) <= 1e-5

@@ -15,8 +15,9 @@ import torch
 import mvtb_tpu_torch
 from mvtb_tpu_torch import resolve_device
 from mvtb_tpu_torch.models import UNet
-from mvtb_tpu_torch.ops import _build, fused, fused_plane
-from mvtb_tpu_torch.train import seg_eval_step
+from mvtb_tpu_torch.ops import _build, fused, fused_plane, pallas_dft
+from mvtb_tpu_torch.train import (create_seg_state, seg_eval_step, seg_train_step,
+                                  train_segmentation)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mvtb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -29,6 +30,7 @@ FORBIDDEN = re.compile(
 def test_import_leaves_jax_out():
     code = ("import sys, mvtb_tpu_torch, mvtb_tpu_torch.ops, "
             "mvtb_tpu_torch.ops.fused_plane, mvtb_tpu_torch.ops._build, "
+            "mvtb_tpu_torch.ops.pallas_dft, mvtb_tpu_torch.train.losses, "
             "mvtb_tpu_torch.models, mvtb_tpu_torch.eval, mvtb_tpu_torch.train, "
             "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -73,6 +75,17 @@ def test_entry_points_default_to_the_card(no_card):
     model = UNet(1, 1, (2, 4), (2,), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         seg_eval_step(model, x, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_seg_state(model)
+    state = create_seg_state(model, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg_train_step(state, x, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_segmentation(state, iter([(x, x)]), 1)
+    pallas_cfg = fused.StylizeConfig(disk_r=3.0, fft_backend="dft_pallas")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused.stylize_batch(x, pallas_cfg)
+    assert state.step == 0
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -81,17 +94,24 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
     monkeypatch.setattr(fused_plane, "_LIB", {})
-    with pytest.raises(RuntimeError, match="nvcc"):
-        _build.load("fused_plane")
+    monkeypatch.setattr(pallas_dft, "_LIB", {})
+    for name in _build.SOURCES:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.load(name)
     with pytest.raises(RuntimeError, match="nvcc"):
         fused_plane._lib()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pallas_dft._lib()
     assert not (tmp_path / "build").exists()
 
 
 def test_build_names_the_hopper_target():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert (_build.CSRC / "fused_plane.cu").is_file()
-    assert _build.lib_path("fused_plane").parent == _build.BUILD_DIR
+    assert _build.SOURCES == {"fused_plane": "fused_plane.cu",
+                              "axis_dft": "axis_dft.cu"}
+    for name, src in _build.SOURCES.items():
+        assert (_build.CSRC / src).is_file()
+        assert _build.lib_path(name).parent == _build.BUILD_DIR
 
 
 def test_wrapper_takes_plain_only_for_cpu_tensors():
