@@ -36,13 +36,32 @@ order, each fatal on failure:
    it must launch r2c, c2c and c2r 1, 4 and 1 times per step, never call a
    plain version on a CUDA tensor, give a finite loss at every step and
    change the parameters;
-6. timing with CUDA events: the plane kernel, its plain version and
+6. pointwise kernel phase: the salt & pepper and polar kernels against
+   their plain versions at a 4x240x240x155 volume, (3, 7, 13, 11) and 1001
+   elements (also through an offset, unaligned view): sap bit-equal at
+   p = 0, 0.05 and 0.4, polar within 1e-6 elementwise relative on spectra
+   holding 0, -0.0 and denormals; at full size and p = 0.05 the changed,
+   pepper and salt shares within 6 sigma, the levels exactly min/2 and
+   max/2, the seed dependence, and at p = 0 the changed count equal to the
+   count of u == 0;
+7. corruption phase (the per-volume corruption path): the dict pipeline
+   (disk r=12.5, Gibbs, spikes, wrap 0.5, plane wave on the (55, 55, 30)
+   shell, S&P 0.05) on the card against the CPU at 4x32x32x16 (within 1e-4
+   of the max), then at 4x240x240x155 on the card, followed by
+   ``salt_and_pepper_pallas`` on the same volume and the JAX package's
+   ``benchmarks.py:config6`` magnitude-edit tail on its spectrum in three
+   strategies (within 1e-5 of the max of each other); one launch of each
+   pointwise kernel, none of another kernel, no plain version on the card;
+8. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes; each axis kernel, its plain version
    and the ``torch.fft`` call of the same transform at every view of the
    train and bench shapes; ``stylize_batch`` ms and vol/s on both paths;
    the eval step's ms and the train step's ms (host clock around steps
-   ending in ``torch.cuda.synchronize()``).
+   ending in ``torch.cuda.synchronize()``); each pointwise kernel, its
+   plain version, the composite torch version and the extrema pass at the
+   full volume; the pipeline's ms per volume (host clock) and each
+   magnitude-edit strategy's ms.
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels": ...}``
 JSON object and ``{"ok": true, "device": {...}}``.
@@ -107,6 +126,26 @@ LAUNCHES_PER_STEP = {"r2c": 1, "c2c": 4, "c2r": 1}
 AXIS_REPLACES = {"r2c": "mvtb_tpu/ops/pallas_dft.py:116",
                  "c2c": "mvtb_tpu/ops/pallas_dft.py:101",
                  "c2r": "mvtb_tpu/ops/pallas_dft.py:127"}
+# the pointwise kernels: one BraTS volume (4 modalities x 240x240x155, also
+# the magnitude-edit tail's k-space), an odd shape, and a count that is not a
+# multiple of 4 (also checked through an offset view, not 16-byte aligned)
+POINTWISE_SHAPES = {"volume": (4, 240, 240, 155), "odd": (3, 7, 13, 11), "ragged": (1001,)}
+SAP_P = (0.0, 0.05, 0.4)
+POLAR_TOL = 1e-6  # elementwise relative
+POINTWISE_REPLACES = {"sap": "mvtb_tpu/ops/pallas_kernels.py:39",
+                      "polar": "mvtb_tpu/ops/pallas_kernels.py:53"}
+# operations per element counted for the bound, all at the float32
+# CUDA-core rate: sap = 10 Philox rounds of 10 integer operations per 4
+# elements + the select; polar = the 12 operations of its formula
+POINTWISE_OPS = {"sap": 25 + 5, "polar": 12}
+POINTWISE_BYTES = {"sap": 8, "polar": 16}
+# the per-volume corruption path: one dict volume at full size, and the
+# card-vs-CPU reference size
+PIPELINE_SHAPE = (4, 240, 240, 155)
+PIPELINE_SMALL = (4, 32, 32, 16)
+# the magnitude-edit tail of the JAX package's benchmarks.py:config6
+EDIT_LOG_INTENSITY = 14.0
+EDIT_TOL = 1e-5
 
 
 def out(obj) -> None:
@@ -563,7 +602,263 @@ def train_phase(dev) -> dict:
             "optimizer_step_ms": opt_ms, "peak_memory_gb": peak_gb}
 
 
-def kernels_line(sl, tr, tm, ax) -> list:
+def elementwise_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| / |b| over the elements that differ."""
+    d = (a - b).abs()
+    return float(torch.where(d == 0, torch.zeros_like(d), d / b.abs().clamp_min(1e-38)).max())
+
+
+def polar_inputs(shape, dev, seed):
+    """(re, im) of a random volume's spectrum with exact 0, -0.0 and
+    denormal entries written over its first elements."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.fft.fftn(torch.randn(shape, generator=g, device=dev))
+    re, im = k.real.contiguous(), k.imag.contiguous()
+    re.view(-1)[:8] = torch.tensor([0.0, -0.0, 1e-40, 1e-30, -0.0, 1e-39, 3.0, 0.0])
+    im.view(-1)[:8] = torch.tensor([0.0, 0.0, 1e-40, 0.0, -0.0, -1e-39, -0.0, -2.0])
+    return re, im
+
+
+def sap_statistics(x: torch.Tensor, out: torch.Tensor, p: float) -> dict:
+    """Changed, pepper and salt shares of one S&P output, each held within
+    6 sigma of its probability; the levels are exactly min/2 and max/2 and
+    every other voxel is the input's."""
+    n = x.numel()
+    lo, hi = x.min() / 2, x.max() / 2
+    changed = out != x
+    pepper, salt = int((changed & (out == lo)).sum()), int((changed & (out == hi)).sum())
+    n_changed = int(changed.sum())
+    check(pepper + salt == n_changed, "a changed voxel is neither min/2 nor max/2")
+    check(torch.equal(out[~changed], x[~changed]), "an unchanged voxel differs")
+    res = {"changed": n_changed / n, "pepper": pepper / n, "salt": salt / n}
+    for key, prob in (("changed", p), ("pepper", p / 2), ("salt", p / 2)):
+        sigma = math.sqrt(prob * (1 - prob) / n)
+        check(abs(res[key] - prob) <= 6 * sigma,
+              f"S&P {key} share {res[key]:.6f}, expected {prob} within 6 sigma ({sigma:.2e})")
+        res[f"{key}_sigma"] = sigma
+    return res
+
+
+def pointwise_kernel_phase(dev) -> dict:
+    """Both pointwise kernels against their plain versions: sap bit-equal
+    at every p, polar within POLAR_TOL elementwise; at full size the S&P
+    statistics, the p = 0 rule and the seed dependence."""
+    from mvtb_tpu_torch.ops import pallas_kernels as pk
+
+    res = {}
+    for name, shape in POINTWISE_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(20)
+        x = torch.randn(shape, generator=g, device=dev)
+        views = {"": x, " offset": x.reshape(-1)[1:]} if name == "ragged" else {"": x}
+        for tag, v in views.items():
+            for p in SAP_P:
+                got = pk.salt_and_pepper_pallas(v, p, 1234)
+                ref = pk.salt_and_pepper_plain(v, p, 1234)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"sap kernel vs plain {name}{tag} p={p}: not bit-equal")
+            re, im = polar_inputs(v.shape, dev, seed=21)
+            got = pk.polar_roundtrip_pallas(re, im)
+            ref = pk.polar_roundtrip_plain(re, im)
+            torch.cuda.synchronize()
+            err = max(elementwise_rel(a, b) for a, b in zip(got, ref))
+            check(all(bool(torch.isfinite(a).all()) for a in got), f"non-finite polar output {name}")
+            check(err <= POLAR_TOL, f"polar kernel vs plain {name}{tag}: {err:.3e} > {POLAR_TOL}")
+            res[f"polar {name}{tag} max_rel_err"] = err
+            res[f"polar {name}{tag} max_abs_err"] = max(float((a - b).abs().max())
+                                                      for a, b in zip(got, ref))
+            del got, ref, re, im
+
+    x = torch.randn(POINTWISE_SHAPES["volume"], generator=torch.Generator(
+        device=dev).manual_seed(22), device=dev)
+    out = pk.salt_and_pepper_pallas(x, 0.05, 99)
+    res["sap volume p=0.05"] = sap_statistics(x, out, 0.05)
+    check(torch.equal(out, pk.salt_and_pepper_pallas(x, 0.05, 99)), "same seed, other output")
+    check(not torch.equal(out, pk.salt_and_pepper_pallas(x, 0.05, 100)), "other seed, same output")
+    zero = pk.salt_and_pepper_pallas(x, 0.0, 99)
+    n_u0 = int((pk.sap_uniform(x.numel(), 99, dev) == 0).sum())
+    check(int((zero != x).sum()) == n_u0,
+          f"p=0 changed {int((zero != x).sum())} voxels, u == 0 at {n_u0}")
+    res["sap volume p=0 changed"] = n_u0
+    return res
+
+
+def corruption_pipeline(shape, dev, seed: int):
+    """The verify skill's reference recipe widened to the whole dict stack,
+    every transform applied (prob=1), seeded through Compose. The plane
+    wave's ellipsoid (55, 55, 30) is scaled with the volume; the spike
+    transform's per-key draws are seeded by ``common_sampling``."""
+    from mvtb_tpu_torch import transforms as T
+
+    H, W, D = shape[1:]
+    axes = (55.0 * H / 240, 55.0 * W / 240, 30.0 * D / 155)
+    return T.Compose([
+        T.RandFourierDiskMaskd(keys="image", r=12.5, prob=1.0, device=dev),
+        T.RandGibbsNoised(keys="image", prob=1.0, alpha=(0.2, 0.5), device=dev),
+        T.RandKSpaceSpikeNoised(keys="image", prob=1.0, common_sampling=True,
+                                common_seed=seed + 1, device=dev),
+        T.WrapArtifactd(keys="image", alpha=0.5, device=dev),
+        T.RandPlaneWaves_ellipsoid("image", *axes, intensity_value=14.0, prob=1.0,
+                                   device=dev),
+        T.SaltAndPepper(p=0.05, keys="image", prob=1.0, device=dev),
+    ]).set_random_state(seed)
+
+
+def edit_index(C: int, dev):
+    """config6's written points: one per channel at (3, 5, 7)."""
+    return (torch.arange(C, device=dev), torch.full((C,), 3, device=dev),
+            torch.full((C,), 5, device=dev), torch.full((C,), 7, device=dev))
+
+
+def corruption_phase(dev) -> dict:
+    """The slice's main path: the per-volume dict pipeline at full size, the
+    S&P kernel through its entry point on the same volume, and the three
+    magnitude-edit strategies on its spectrum (the second through the polar
+    kernel). Counts are set to 0 just before and read just after."""
+    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels as pk
+
+    # small end-to-end reference: the same pipeline and seed on the CPU
+    g = torch.Generator().manual_seed(30)
+    small = torch.randn(PIPELINE_SMALL, generator=g)
+    ref = corruption_pipeline(PIPELINE_SMALL, "cpu", 3)({"image": small})["image"]
+    got = corruption_pipeline(PIPELINE_SMALL, dev, 3)({"image": small})["image"]
+    small_err = rel_err(got.cpu(), ref)
+    check(got.is_cuda, "the pipeline's output left the card")
+    check(small_err <= 1e-4, f"card vs CPU pipeline at {PIPELINE_SMALL}: {small_err:.3e}")
+
+    # the main path
+    g = torch.Generator(device=dev).manual_seed(31)
+    image = torch.randn(PIPELINE_SHAPE, generator=g, device=dev)
+    pipe = corruption_pipeline(PIPELINE_SHAPE, dev, 4)
+    idx = edit_index(PIPELINE_SHAPE[0], dev)
+    plains = {n: getattr(pk, n) for n in ("salt_and_pepper_plain", "polar_roundtrip_plain")}
+    plain_on_card = []
+
+    def watched(n):
+        def call(t, *a, **kw):
+            if t.is_cuda:
+                plain_on_card.append((n, tuple(t.shape)))
+            return plains[n](t, *a, **kw)
+        return call
+
+    for n in plains:
+        setattr(pk, n, watched(n))
+    try:
+        for k in pk.launches:
+            pk.launches[k] = 0
+        for k in pallas_dft.launches:
+            pallas_dft.launches[k] = 0
+        fused_plane.plane_stylize_half.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        styled = pipe({"image": image})["image"]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        sap = pk.salt_and_pepper_pallas(image, 0.05, 7)
+        k = torch.fft.fftn(image, dim=(-3, -2, -1))
+        tails = {s: pk.magnitude_edit(k, idx, EDIT_LOG_INTENSITY, s)
+                 for s in pk.EDIT_STRATEGIES}
+        torch.cuda.synchronize()
+        launches = dict(pk.launches)
+        other = dict(pallas_dft.launches, plane=fused_plane.plane_stylize_half.launches)
+    finally:
+        for n, fn in plains.items():
+            setattr(pk, n, fn)
+    check(launches == {"sap": 1, "polar": 1}, f"pointwise launches {launches}, expected 1 each")
+    check(not any(other.values()), f"the corruption path launched other kernels: {other}")
+    check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
+    check(styled.is_cuda and tuple(styled.shape) == PIPELINE_SHAPE, "pipeline output shape")
+    check(bool(torch.isfinite(styled).all()), "non-finite pipeline output")
+    check(not torch.equal(styled, image), "the pipeline left the volume unchanged")
+    sap_stats = sap_statistics(image, sap, 0.05)
+    ref_tail = tails["torch_chain"]
+    scale = float(ref_tail.abs().max())
+    tail_err = {s: float((t - ref_tail).abs().max()) / scale for s, t in tails.items()}
+    check(max(tail_err.values()) <= EDIT_TOL, f"magnitude-edit strategies disagree: {tail_err}")
+    check(all(bool(torch.isfinite(torch.view_as_real(t)).all()) for t in tails.values()),
+          "non-finite magnitude-edit output")
+    del styled, sap, tails, ref_tail
+
+    pipe_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe({"image": image})
+        torch.cuda.synchronize()
+        pipe_s.append(time.perf_counter() - t0)
+    # where a pipeline call's time goes: each transform alone, host clock
+    stage_ms, d = {}, {"image": image}
+    for t in pipe.transforms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = t(d)
+        torch.cuda.synchronize()
+        stage_ms[type(t).__name__] = (time.perf_counter() - t0) * 1e3
+    del d
+    edit_ms = {s: cuda_ms(lambda s=s: pk.magnitude_edit(k, idx, EDIT_LOG_INTENSITY, s), 5)
+               for s in pk.EDIT_STRATEGIES}
+    return {"small_ref_rel_err": small_err, "launches": launches,
+            "sap_entry_point": sap_stats, "edit_rel_err_vs_torch_chain": tail_err,
+            "pipeline_first_ms": first_s * 1e3,
+            "pipeline_ms_per_volume": [s * 1e3 for s in pipe_s],
+            "pipeline_ms_per_volume_median": statistics.median(pipe_s) * 1e3,
+            "pipeline_stage_ms": stage_ms,
+            "edit_ms": edit_ms}
+
+
+def pointwise_bound(name: str, n: int):
+    flops = float(POINTWISE_OPS[name] * n)
+    nbytes = float(POINTWISE_BYTES[name] * n)
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BPS
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def pointwise_timing(dev) -> dict:
+    """Kernel (wrapper, extrema pass included for sap), plain and composite
+    PyTorch ms at the full volume, with the bound. No single PyTorch call
+    computes either function, so their ``library_ms`` is null; the
+    composite torch version is timed instead (``torch.rand`` + the select;
+    ``torch.polar`` of ``exp(log(|k| + 1e-10))`` and ``angle(k)``)."""
+    from mvtb_tpu_torch.ops import corruptions, pallas_kernels as pk
+
+    shape = POINTWISE_SHAPES["volume"]
+    g = torch.Generator(device=dev).manual_seed(40)
+    x = torch.randn(shape, generator=g, device=dev)
+    n = x.numel()
+    p = torch.tensor(0.05, device=dev)
+
+    def library_sap():
+        mn, mx = torch.aminmax(x)
+        return corruptions.sap_select(x, torch.rand(shape, generator=g, device=dev), p,
+                                      mn / 2, mx / 2)
+
+    res = {}
+    flops, nbytes, bound_ms, bound_by = pointwise_bound("sap", n)
+    res["sap"] = {"shape": list(shape), "max_abs_err": float(
+        (pk.salt_and_pepper_pallas(x, 0.05, 5) - pk.salt_and_pepper_plain(x, 0.05, 5)).abs().max()),
+        "ms": cuda_ms(lambda: pk.salt_and_pepper_pallas(x, 0.05, 5), 20),
+        "extrema_pass_ms": cuda_ms(lambda: torch.aminmax(x), 20),
+        "plain_ms": cuda_ms(lambda: pk.salt_and_pepper_plain(x, 0.05, 5), 3),
+        "composite_torch_ms": cuda_ms(library_sap, 10),
+        "composite_torch": "torch.rand + aminmax + select",
+        "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "bound_ms": bound_ms, "bound_by": bound_by}
+    re, im = polar_inputs(shape, dev, seed=41)
+    kc = torch.complex(re, im)
+    got, ref = pk.polar_roundtrip_pallas(re, im), pk.polar_roundtrip_plain(re, im)
+    flops, nbytes, bound_ms, bound_by = pointwise_bound("polar", n)
+    res["polar"] = {"shape": list(shape),
+                    "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+                    "max_rel_err": max(elementwise_rel(a, b) for a, b in zip(got, ref)),
+                    "ms": cuda_ms(lambda: pk.polar_roundtrip_pallas(re, im), 20),
+                    "plain_ms": cuda_ms(lambda: pk.polar_roundtrip_plain(re, im), 10),
+                    "composite_torch_ms": cuda_ms(lambda: torch.polar(
+                        torch.exp(torch.log(torch.abs(kc) + 1e-10)), torch.angle(kc)), 10),
+                    "composite_torch": "torch.polar(exp(log(abs + 1e-10)), angle)",
+                    "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+    return res
+
+
+def kernels_line(sl, tr, tm, ax, cp, pt) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
     path, each axis kernel from the train path."""
     main_t = tm["plane slice"]
@@ -590,6 +885,15 @@ def kernels_line(sl, tr, tm, ax) -> list:
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
             "library_ms": sum(r["library_ms"] for r in rows)})
+    # the pointwise kernels from the corruption path, timed at its volume
+    for name in ("sap", "polar"):
+        t = pt[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "mvtb_tpu_torch/csrc/pointwise.cu",
+            "replaces": POINTWISE_REPLACES[name], "launches": cp["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})  # no single PyTorch call: see composite_torch_ms
     return kernels
 
 
@@ -641,13 +945,25 @@ def main() -> int:
     out({"train_phase": tr})
 
     t0 = time.perf_counter()
+    pw = pointwise_kernel_phase(dev)
+    out({"pointwise_kernel_phase": pw, "polar_tolerance": POLAR_TOL,
+         "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cp = corruption_phase(dev)
+    cp["seconds"] = time.perf_counter() - t0
+    out({"corruption_phase": cp, "card": smi})
+
+    t0 = time.perf_counter()
     tm = timing_phase(dev)
     out({"timing": tm, "card": smi, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     ax = axis_timing(dev)
     out({"axis_timing": ax, "card": smi, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    pt = pointwise_timing(dev)
+    out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, tm, ax)
+    kernels = kernels_line(sl, tr, tm, ax, cp, pt)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",

@@ -1,16 +1,20 @@
 """PyTorch/CUDA port of mvtb_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``mvtb_tpu`` stays the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``eval/``, ``train/``) so each module's
-counterpart is easy to find. It imports ``torch`` and numpy only.
+layout (``ops/``, ``transforms/``, ``models/``, ``eval/``, ``train/``) so
+each module's counterpart is easy to find. It imports ``torch`` and numpy
+only.
 
 Entry points take ``device=None``, which means ``"cuda"``: with no card
 they raise instead of running on the CPU. Pass ``device="cpu"`` explicitly
 to run the plain PyTorch versions of the kernels on the CPU.
 
-Ported so far: corrupted-validation inference — ``ops.fused.stylize_batch``
-on the fused plane kernel (``csrc/fused_plane.cu``), ``models.unet3d.UNet``,
-``eval.dice`` and ``train.seg.seg_eval_step``.
+Ported so far: corrupted-validation inference (``train.seg.seg_eval_step``
+on the fused plane kernel, ``csrc/fused_plane.cu``), segmentation training
+(``train.seg.train_segmentation`` on the axis-DFT kernels,
+``csrc/axis_dft.cu``) and the per-volume corruption path (``ops``'
+corruption ops, ``transforms``, and the salt & pepper and polar kernels,
+``csrc/pointwise.cu``).
 """
 
 from mvtb_tpu_torch._device import resolve_device

@@ -35,6 +35,7 @@ import torch
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.ops import dft as _dft
+from mvtb_tpu_torch.ops.corruptions import sap_select
 from mvtb_tpu_torch.ops.masks import shell_flat_indices
 
 ParamSpec = Union[float, Tuple[float, float]]  # fixed value or U[lo,hi] range
@@ -260,9 +261,7 @@ def _salt_and_pepper(out: torch.Tensor, draws: StageDraws) -> torch.Tensor:
     flat = out.reshape(B, -1)
     lo = (flat.amin(dim=1) / 2).view(view)
     hi = (flat.amax(dim=1) / 2).view(view)
-    u = draws.sap_u
-    styled = torch.where(u <= p / 2, lo, out)
-    return torch.where((u > p / 2) & (u <= p), hi, styled)
+    return sap_select(out, draws.sap_u, p, lo, hi)
 
 
 def _forward(x: torch.Tensor, backend: str):

@@ -9,13 +9,17 @@ are drawn through the port's own path; tolerances are relative to the
 output's max: 1e-5 for ``plane`` and the axis kernels' ``highest`` tier
 (float32 on both sides, another summation order) and 2e-2 for
 ``plane_fast`` and ``default`` (bf16 operands on both sides; an
-intermediate may round to the neighbouring bf16 value).
+intermediate may round to the neighbouring bf16 value). The salt & pepper
+kernel must be bit-equal to its plain version (the same Philox words and
+the same float32 select); the polar kernel within 1e-6 elementwise
+relative (``logf``/``expf`` of the CUDA math library on both sides, within
+an ulp of each other).
 """
 
 import pytest
 import torch
 
-from mvtb_tpu_torch.ops import dft, fused, fused_plane, pallas_dft
+from mvtb_tpu_torch.ops import dft, fused, fused_plane, pallas_dft, pallas_kernels
 
 CASES = [
     dict(disk_r=6.0),
@@ -179,3 +183,63 @@ def test_general_stylize_on_the_card_matches_cpu(backend, cuda_device):
         assert {k: pallas_dft.launches[k] - before[k] for k in before} == \
             {"r2c": 1, "c2c": 4, "c2r": 1}
     assert rel_err(got.cpu(), ref) <= 1e-5
+
+
+# the pointwise kernels: counts that are and are not multiples of 4, and an
+# offset view (not 16-byte aligned) that takes the scalar path
+POINTWISE_SHAPES = [(3, 7, 13, 11), (1001,), (2, 64, 64, 31)]
+
+
+def _elementwise_rel(a, b):
+    d = (a - b).abs()
+    return float(torch.where(d == 0, torch.zeros_like(d), d / b.abs().clamp_min(1e-38)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POINTWISE_SHAPES)
+def test_sap_kernel_bit_equal_to_plain(shape, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    for view in (x, x.reshape(-1)[1:]):
+        for p in (0.0, 0.05, 0.4):
+            before = pallas_kernels.launches["sap"]
+            got = pallas_kernels.salt_and_pepper_pallas(view, p, 123)
+            assert pallas_kernels.launches["sap"] == before + 1
+            ref = pallas_kernels.salt_and_pepper_plain(view, p, 123)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (shape, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POINTWISE_SHAPES)
+def test_polar_kernel_matches_plain(shape, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    re = torch.randn(shape, generator=g, device=cuda_device) * 100
+    im = torch.randn(shape, generator=g, device=cuda_device) * 100
+    re.view(-1)[:4] = torch.tensor([0.0, -0.0, 1e-40, 1e-30])
+    im.view(-1)[:4] = torch.tensor([0.0, 0.0, 1e-40, 0.0])
+    for a, b in ((re, im), (re.reshape(-1)[1:], im.reshape(-1)[1:])):
+        before = pallas_kernels.launches["polar"]
+        got = pallas_kernels.polar_roundtrip_pallas(a, b)
+        assert pallas_kernels.launches["polar"] == before + 1
+        ref = pallas_kernels.polar_roundtrip_plain(a, b)
+        torch.cuda.synchronize()
+        for o, r in zip(got, ref):
+            assert _elementwise_rel(o, r) <= 1e-6, shape
+
+
+@pytest.mark.cuda
+def test_pointwise_kernels_reject_bad_input(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        pallas_kernels.salt_and_pepper_pallas(x.double(), 0.1, 1)
+    with pytest.raises(ValueError):
+        pallas_kernels.salt_and_pepper_pallas(x.t(), 0.1, 1)
+    with pytest.raises(NotImplementedError):
+        pallas_kernels.polar_roundtrip_pallas(x.half(), x.half())
+    with pytest.raises(ValueError):
+        pallas_kernels.polar_roundtrip_pallas(x, x[:, :4])
+    with pytest.raises(ValueError):
+        pallas_kernels.polar_roundtrip_pallas(x.t(), x.t())
+    with pytest.raises(ValueError):
+        pallas_kernels.polar_roundtrip_pallas(x, x.cpu())

@@ -15,7 +15,8 @@ import torch
 import mvtb_tpu_torch
 from mvtb_tpu_torch import resolve_device
 from mvtb_tpu_torch.models import UNet
-from mvtb_tpu_torch.ops import _build, fused, fused_plane, pallas_dft
+from mvtb_tpu_torch import transforms as T
+from mvtb_tpu_torch.ops import _build, fused, fused_plane, masks, pallas_dft, pallas_kernels
 from mvtb_tpu_torch.train import (create_seg_state, seg_eval_step, seg_train_step,
                                   train_segmentation)
 
@@ -32,6 +33,10 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.ops.fused_plane, mvtb_tpu_torch.ops._build, "
             "mvtb_tpu_torch.ops.pallas_dft, mvtb_tpu_torch.train.losses, "
             "mvtb_tpu_torch.models, mvtb_tpu_torch.eval, mvtb_tpu_torch.train, "
+            "mvtb_tpu_torch.ops.fourier, mvtb_tpu_torch.ops.masks, "
+            "mvtb_tpu_torch.ops.corruptions, mvtb_tpu_torch.ops.pallas_kernels, "
+            "mvtb_tpu_torch.transforms, mvtb_tpu_torch.transforms.base, "
+            "mvtb_tpu_torch.transforms.array, mvtb_tpu_torch.transforms.dictionary, "
             "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
@@ -89,12 +94,46 @@ def test_entry_points_default_to_the_card(no_card):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+@pytest.mark.parametrize("make", [
+    lambda: T.GibbsNoise(0.5),
+    lambda: T.RandGibbsNoise(prob=1.0),
+    lambda: T.KSpaceSpikeNoise((1, 2, 3)),
+    lambda: T.RandKSpaceSpikeNoise(prob=1.0),
+    lambda: T.WrapArtifact(0.5),
+    lambda: T.RandZF(0.1),
+    lambda: T.RandFourierDiskMaskd("image", r=3.0),
+    lambda: T.RandPlaneWaves_ellipsoid("image"),
+    lambda: T.SaltAndPepper(0.1),
+    lambda: T.WrapArtifactd("image"),
+    lambda: T.RandGibbsNoised("image"),
+    lambda: T.RandKSpaceSpikeNoised("image"),
+    lambda: masks.soft_gibbs_mask((4, 4, 4), 0.5),
+    lambda: masks.reference_gibbs_layer_mask((4, 4, 4), 0.5),
+])
+def test_transforms_default_to_the_card(no_card, make):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+
+
+def test_pointwise_wrappers_never_run_plain_off_the_cpu():
+    """Without a card there is no CUDA tensor to hand a wrapper: a tensor
+    on any device but the CPU (``meta`` here) raises instead of reaching
+    the plain version, and the kernel library raises without a compiler."""
+    x = torch.zeros(2, 3, 4, device="meta")
+    for call in (lambda: pallas_kernels.salt_and_pepper_pallas(x, 0.1, 1),
+                 lambda: pallas_kernels.polar_roundtrip_pallas(x, x)):
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
+    assert pallas_kernels.launches == {"sap": 0, "polar": 0}
+
+
 def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
     monkeypatch.setattr(fused_plane, "_LIB", {})
     monkeypatch.setattr(pallas_dft, "_LIB", {})
+    monkeypatch.setattr(pallas_kernels, "_LIB", {})
     for name in _build.SOURCES:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
@@ -102,13 +141,16 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
         fused_plane._lib()
     with pytest.raises(RuntimeError, match="nvcc"):
         pallas_dft._lib()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pallas_kernels._lib()
     assert not (tmp_path / "build").exists()
 
 
 def test_build_names_the_hopper_target():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.SOURCES == {"fused_plane": "fused_plane.cu",
-                              "axis_dft": "axis_dft.cu"}
+                              "axis_dft": "axis_dft.cu",
+                              "pointwise": "pointwise.cu"}
     for name, src in _build.SOURCES.items():
         assert (_build.CSRC / src).is_file()
         assert _build.lib_path(name).parent == _build.BUILD_DIR
@@ -128,6 +170,13 @@ def test_wrapper_takes_plain_only_for_cpu_tensors():
     meta = k.to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused_plane.plane_stylize_half(meta, meta, (8, 6, 4), flags, *params)
+    # the pointwise kernels' wrappers: plain on CPU tensors, nothing counted
+    counts = dict(pallas_kernels.launches)
+    assert torch.equal(pallas_kernels.salt_and_pepper_pallas(k, 0.2, 5),
+                       pallas_kernels.salt_and_pepper_plain(k, 0.2, 5))
+    assert all(torch.equal(a, b) for a, b in zip(
+        pallas_kernels.polar_roundtrip_pallas(k, k), pallas_kernels.polar_roundtrip_plain(k, k)))
+    assert pallas_kernels.launches == counts
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
