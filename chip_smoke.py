@@ -12,11 +12,15 @@ order, each fatal on failure:
    so the plain versions are float32-exact references);
 2. build: every kernel of the port compiled from ``mvtb_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), with each kernel's ptxas lines;
-3. kernel phase: the fused plane kernel against its plain PyTorch version
-   on the card, both precision tiers, at (N, H, W, D) = (8, 240, 240, 160),
-   (16, 240, 240, 155) and (3, 15, 13, 11), for every stage combination of
-   the JAX package's plane tests; relative-of-max error at most 1e-5
-   (``plane``) and 2e-2 (``plane_fast``). Then every matmul-DFT axis kernel
+3. kernel phase: the fused plane kernel (tensor cores: bf16x3 for
+   ``plane``, bf16 for ``plane_fast``) against its plain PyTorch version,
+   which computes the same products with float32 ``torch.matmul``, on the
+   card, both precision tiers, at (N, H, W, D) = (8, 240, 240, 160),
+   (16, 240, 240, 155), (3, 15, 13, 11) and (2, 8, 520, 300) (a plane wider
+   than one kernel tile, which takes two scratch buffers), for every stage
+   combination of the JAX package's plane tests; relative-of-max error at
+   most 5e-5 (``plane``: both sides bf16x3, whose split resolves 2^-17 of an
+   element) and 2e-2 (``plane_fast``). Then every matmul-DFT axis kernel
    (r2c, c2c, c2r; lane and sublane; ``highest`` and ``default``) against
    its plain version at the views of the train shape (8, 128, 128, 64), the
    bench shape (16, 240, 240, 155) and an odd (3, 7, 13, 11), at most 1e-5
@@ -28,9 +32,12 @@ order, each fatal on failure:
    2x4x240x240x160 batch under the bench stack (``fft_backend="plane"``);
    it must launch the plane kernel, never call the plain version on a CUDA
    tensor, and give finite logits and a (2, 3) Dice;
-5. train phase (segmentation training on ``fft_backend="dft_pallas"``): one
-   float32 ``seg_train_step`` with SGD(1.0) at 1x4x32^3 on the card against
-   the same step on the CPU (gradients within 1e-4 of the largest one),
+5. train phase (segmentation training on ``fft_backend="dft_pallas"``): the
+   stylized input at 1x4x32^3 on the card against the CPU's, then one
+   float32 ``seg_train_step`` with SGD(1.0) on the card against the same
+   step on the CPU, repeated 3 times with cuDNN's default algorithm choice
+   and 3 times with ``cudnn.deterministic`` (the spread of each printed;
+   the deterministic gradients within 1e-4 of the largest one),
    then ``train_segmentation`` for 6 steps at B=2, 4x128x128x64 with the
    full-width UNet in bfloat16, ``reference_optimizer`` and the bench stack;
    it must launch r2c, c2c and c2r 1, 4 and 1 times per step, never call a
@@ -54,7 +61,9 @@ order, each fatal on failure:
    pointwise kernel, none of another kernel, no plain version on the card;
 8. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
-   only) at the slice and bench shapes; each axis kernel, its plain version
+   only) at the slice and bench shapes, with the bound at the bf16
+   tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
+   share of the bound; each axis kernel, its plain version
    and the ``torch.fft`` call of the same transform at every view of the
    train and bench shapes; ``stylize_batch`` ms and vol/s on both paths;
    the eval step's ms and the train step's ms (host clock around steps
@@ -108,8 +117,22 @@ BENCH_STACK = dict(disk_r=(10.0, 25.0), plane_axes=(55.0, 55.0, 30.0),
 SMALL_STACK = dict(disk_r=(3.0, 6.0), plane_axes=(6.0, 5.0, 4.0),
                    plane_intensity=12.0, spike=True, spike_range=(10.0, 11.0),
                    wrap_alpha=0.5, sap_p=0.05)
-TOL = {"plane": 1e-5, "plane_fast": 2e-2}
-KERNEL_SHAPES = [(8, 240, 240, 160), (16, 240, 240, 155), (3, 15, 13, 11)]
+# Kernel vs plain, relative to the output's max. Both sides of a tier
+# compute the same products but sum them in another float32 order; in
+# bf16x3 a split's lo then rounds to a neighbouring bf16 value on some
+# elements, a step of 2^-17 of that element, ~8e-6 of the output's max on a
+# dominant element (a point write): 5e-5 allows a few such steps. In bf16 a
+# whole operand may round to a neighbouring bf16 value (2^-8).
+TOL = {"plane": 5e-5, "plane_fast": 2e-2}
+KERNEL_SHAPES = [(8, 240, 240, 160), (16, 240, 240, 155), (3, 15, 13, 11), (2, 8, 520, 300)]
+# bf16 tensor-core products per Gauss product: bf16x3 (hi.hi + hi.lo + lo.hi)
+# for ``plane``, one for ``plane_fast``
+TIER_PRODUCTS = {"plane": 3, "plane_fast": 1}
+TIER_PEAK = {"plane": "bf16x3 tensor core", "plane_fast": "bf16 tensor core"}
+GRAD_REPEATS = 3
+# kernel vs a complex128 torch.fft version, at most this multiple of the
+# plain version's error (both tiers)
+EXACT_RATIO = 3.0
 SLICE_SHAPE = (2, 4, 240, 240, 160)
 BENCH_SHAPE = (4, 4, 240, 240, 155)
 # the registry's default training batch (mvtb_tpu/experiments/registry.py)
@@ -195,12 +218,18 @@ def plane_case(cfg, shape, dev, seed):
     return (k_re, k_im, (H, W, D), flags, *params)
 
 
-def plane_bound(shape):
+def plane_bound(shape, backend):
+    """(flops, bytes, bound ms, bound_by) of one plane-kernel call: the four
+    Gauss contractions (12*W*D*(W+D) flops a plane) times the tier's
+    tensor-core products at the bf16 rate; each input, matrix and output
+    byte once (the matrices as the tier reads them, 2 bytes a bf16 part)."""
     N, H, W, D = shape
     Hh = H // 2 + 1
-    flops = 12.0 * W * D * (W + D) * N * Hh
-    nbytes = 4.0 * (4 * N * Hh * W * D + 6 * W * W + 6 * D * D + 9 * N)
-    return flops, nbytes
+    flops = 12.0 * W * D * (W + D) * N * Hh * TIER_PRODUCTS[backend]
+    parts = 2 if backend == "plane" else 1
+    nbytes = 4.0 * 4 * N * Hh * W * D + 2.0 * parts * (6 * W * W + 6 * D * D) + 4.0 * 9 * N
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BPS
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
 def kernel_phase(dev) -> dict:
@@ -304,9 +333,9 @@ def timing_phase(dev) -> dict:
     res = {}
     for name, (B, C, H, W, D) in (("slice", SLICE_SHAPE), ("bench", BENCH_SHAPE)):
         shape = (B * C, H, W, D)
-        flops, nbytes = plane_bound(shape)
         for backend in ("plane", "plane_fast"):
             fast = backend == "plane_fast"
+            flops, nbytes, bound_ms, bound_by = plane_bound(shape, backend)
             cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend=backend)
             args = plane_case(cfg, shape, dev, seed=3)
             got = fused_plane.plane_stylize_half(*args, fast=fast)
@@ -314,20 +343,27 @@ def timing_phase(dev) -> dict:
             torch.cuda.synchronize()
             abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
             rel = max(rel_err(a, b) for a, b in zip(got, ref))
-            del got, ref
+            exact = fused_plane.plane_stylize_half_exact(*args)
+            kernel_f64 = max(rel_err(a.double(), b) for a, b in zip(got, exact))
+            plain_f64 = max(rel_err(a.double(), b) for a, b in zip(ref, exact))
+            # the kernel is as accurate as the plain version of its tier
+            check(kernel_f64 <= EXACT_RATIO * plain_f64,
+                  f"{backend} {name}: kernel vs float64 {kernel_f64:.3e}, "
+                  f"plain vs float64 {plain_f64:.3e}")
+            del got, ref, exact
             kc = torch.complex(args[0], args[1])
-            peak = BF16_FLOPS if fast else F32_FLOPS
+            ms = cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=fast), 10)
             res[f"{backend} {name}"] = {
-                "shape": list(shape),
-                "ms": cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=fast), 10),
+                "shape": list(shape), "ms": ms,
                 "plain_ms": cuda_ms(lambda: fused_plane.plane_stylize_half_plain(*args, fast=fast), 5),
                 "library_ms_fft2_ifft2_transform_only": cuda_ms(
                     lambda: torch.fft.ifft2(torch.fft.fft2(kc)), 10),
                 "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
-                "bound_ms": max(flops / peak, nbytes / HBM_BPS) * 1e3,
-                "bound_by": "operations" if flops / peak > nbytes / HBM_BPS else "bytes",
-                "bound_peak": "bf16 tensor core" if fast else "float32 CUDA core",
-                "max_abs_err": abs_err, "max_rel_err": rel}
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": TIER_PEAK[backend],
+                # tensor-core flops of the tier (3 products a Gauss product for bf16x3)
+                "achieved_tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
+                "max_abs_err": abs_err, "max_rel_err": rel,
+                "kernel_vs_float64_rel_err": kernel_f64, "plain_vs_float64_rel_err": plain_f64}
             del kc, args
         torch.cuda.empty_cache()
     g = torch.Generator(device=dev).manual_seed(4)
@@ -490,37 +526,69 @@ def train_phase(dev) -> dict:
     lab = (torch.rand(1, 3, 32, 32, 32, generator=g) < 0.3).float()
     draws = fused.sample_draws(small, (32, 32, 32), 1, 4, generator=g, device="cpu")
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    grads, small_losses = {}, {}
-    for name, m, d in (("cpu", cpu_model, "cpu"), ("card", model, dev),
-                       ("card again", model, dev)):
-        m.load_state_dict(start)
-        st = create_seg_state(m, torch.optim.SGD(m.parameters(), lr=1.0), device=d)
-        small_losses[name] = float(seg_train_step(st, x, lab, small, draws=draws, device=d))
-        grads[name] = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
-    # the axis kernels have no atomics: the same stylize twice is bit-equal
+
+    # the stylized input alone, card against CPU: the axis kernels have no
+    # atomics, so the same stylize twice on the card is bit-equal
+    styled_cpu = fused.stylize_batch(x, small, draws=draws, device="cpu")
     styled = [fused.stylize_batch(x, small, draws=draws, device=dev) for _ in range(2)]
     check(torch.equal(*styled), "the dft_pallas stylize differs between two card runs")
+    stylize_err = rel_err(styled[0].cpu(), styled_cpu)
+    check(stylize_err <= 1e-5, f"card vs CPU stylized input at 1x4x32^3: {stylize_err:.3e}")
+
+    def step_grads(m, d):
+        m.load_state_dict(start)
+        st = create_seg_state(m, torch.optim.SGD(m.parameters(), lr=1.0), device=d)
+        loss = float(seg_train_step(st, x, lab, small, draws=draws, device=d))
+        return loss, {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+
+    loss_cpu, g_cpu = step_grads(cpu_model, "cpu")
+    gmax = max(float(v.abs().max()) for v in g_cpu.values())
+    # the same step GRAD_REPEATS times on the card with cuDNN's default
+    # algorithm choice, then with deterministic algorithms: the spread of
+    # each says whether the card's own runs differ, and by how much
+    runs = {}
+    for mode in ("default", "deterministic"):
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        torch.backends.cudnn.benchmark = False
+        try:
+            runs[mode] = [step_grads(model, dev) for _ in range(GRAD_REPEATS)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    def over_max(a, b):  # largest difference over the largest CPU gradient
+        return max(float((a[k] - b[k]).abs().max()) for k in b) / gmax
+
+    grad_err = {m: [over_max(g, g_cpu) for _, g in r] for m, r in runs.items()}
+    spread = {m: max(over_max(g, r[0][1]) for _, g in r[1:]) for m, r in runs.items()}
+    loss_card, g_card = runs["deterministic"][0]
     zero = _norm_fed_biases(model)
-    gmax = max(float(v.abs().max()) for v in grads["cpu"].values())
     rows, zero_max = [], 0.0  # (error / own max, error / largest gradient, name)
-    for k, ref in grads["cpu"].items():
-        err = float((grads["card"][k] - ref).abs().max())
+    for k, ref in g_cpu.items():
+        err = float((g_card[k] - ref).abs().max())
         rows.append((err / max(float(ref.abs().max()), 1e-30), err / gmax, k))
         if k in zero:
-            zero_max = max(zero_max, float(grads["card"][k].abs().max()) / gmax)
-    # Held to the largest gradient, not to each tensor's own max: cuDNN's
-    # backward is not deterministic, so two card runs of the same step
-    # already differ (``card_vs_card_over_max``), and a tensor whose whole
-    # gradient is that small can differ by a large share of its own max.
-    grad_err = max(r[1] for r in rows)
-    card_card = max(float((grads["card again"][k] - g).abs().max())
-                    for k, g in grads["card"].items()) / gmax
+            zero_max = max(zero_max, float(g_card[k].abs().max()) / gmax)
     worst_own = sorted((r for r in rows if r[2] not in zero), reverse=True)[:3]
-    check(grad_err <= 1e-4, f"card vs CPU train-step gradients at 1x4x32^3: {grad_err:.3e}")
+    # Held to the largest gradient, not to each tensor's own max: a tensor
+    # whose whole gradient is small can differ by a large share of its own
+    # max. Held with deterministic cuDNN algorithms, whose card runs agree
+    # with each other (``card_vs_card_spread_over_max``); the default
+    # choice's runs differ from each other and are reported, not held.
+    check(max(grad_err["deterministic"]) <= 1e-4,
+          f"card vs CPU train-step gradients at 1x4x32^3 (deterministic cuDNN): "
+          f"{grad_err['deterministic']}")
     check(zero_max <= 1e-6, f"norm-fed bias gradients not ~0 on the card: {zero_max:.3e}")
-    check(abs(small_losses["card"] - small_losses["cpu"]) <= 1e-5,
-          f"train-step losses {small_losses}")
-    del model, cpu_model, grads
+    check(abs(loss_card - loss_cpu) <= 1e-5,
+          f"train-step losses card {loss_card} cpu {loss_cpu}")
+    small_ref = {"stylized_input_rel_err": stylize_err,
+                 "grad_err_over_max": grad_err,
+                 "card_vs_card_spread_over_max": spread,
+                 "worst_tensors_err_over_own_max": worst_own,
+                 "norm_fed_bias_grad_over_max": zero_max,
+                 "losses": {"cpu": loss_cpu,
+                            **{m: [v for v, _ in r] for m, r in runs.items()}}}
+    del runs, g_card, g_cpu
+    del model, cpu_model
 
     # (b) the main path: the registry's default training run, bf16 UNet
     torch.manual_seed(7)
@@ -590,11 +658,7 @@ def train_phase(dev) -> dict:
 
     fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
     opt_ms = cuda_ms(state.optimizer.step, 5)
-    return {"small_ref": {"grad_err_over_max": grad_err,
-                          "card_vs_card_over_max": card_card,
-                          "worst_tensors_err_over_own_max": worst_own,
-                          "norm_fed_bias_grad_over_max": zero_max,
-                          "losses": small_losses},
+    return {"small_ref": small_ref,
             "unet_params": n_params, "losses": losses, "launches": launches,
             "params_changed": changed, "step_ms": step_ms,
             "step_ms_median_last5": statistics.median(step_ms[1:]),

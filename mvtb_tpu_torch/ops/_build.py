@@ -3,9 +3,10 @@
 Each source in ``mvtb_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds). Libraries go to ``build/mvtb_tpu_torch/``
-at the root of the checkout, named by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused. Several
-sources build in parallel, one ``nvcc`` each.
+at the root of the checkout, named by a hash of the source, the headers
+under ``csrc/`` and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused. Several sources build in parallel, one ``nvcc``
+each.
 """
 
 from __future__ import annotations
@@ -44,9 +45,14 @@ def find_nvcc() -> Optional[str]:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of kernel ``name``, named by a hash of its source, every
+    header under ``csrc/`` (a source may include any of them) and the
+    flags, so an edited source or header is rebuilt."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -13,10 +13,14 @@ kernel (``csrc/fused_plane.cu``) on a CUDA tensor and runs
 :func:`plane_stylize_half_plain`, the same function in plain PyTorch, on a
 CPU tensor. On a CUDA tensor it launches the kernel or raises.
 
-Precision tiers: ``fast=False`` (``fft_backend="plane"``) contracts float32
-operands with float32 accumulation; ``fast=True`` (``"plane_fast"``) rounds
-every operand to bfloat16 and accumulates in float32, as the TPU kernel's
-single-pass bf16 tier does.
+Precision tiers, the TPU kernel's own: ``fast=False`` (``fft_backend="plane"``)
+is bf16x3: every operand x splits into bfloat16 ``hi = bf16(x)`` and
+``lo = bf16(x - hi)`` (:func:`split_bf16`, the JAX package's ``_split_bf16``)
+and each product is ``hi.hi + hi.lo + lo.hi`` with float32 accumulation;
+``fast=True`` (``"plane_fast"``) rounds every operand to bfloat16 once and
+accumulates in float32. The plain version computes the same products
+(exact in float32) with float32 ``torch.matmul``; the kernel runs them on
+the tensor cores.
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ import math
 from functools import lru_cache
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from mvtb_tpu_torch.ops import dft as _dft
@@ -76,33 +79,85 @@ def _shifted(i: torch.Tensor, n: int) -> torch.Tensor:
 # Matrices
 # --------------------------------------------------------------------------
 
-def _bf16_round(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
+_F32_MIN_NORMAL = 2.0 ** -126
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """Float32 denormals flushed to a zero of their sign."""
+    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
+
+
+def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 (hi, lo) split of a float32 tensor, bit for bit the JAX
+    package's ``pallas_dft._split_bf16`` as XLA computes it: ``hi = bf16(t)``
+    and ``lo = bf16(t - hi)``, both rounded to nearest even, the subtraction
+    with float32 denormals flushed to zero on input and output (XLA's float32
+    arithmetic, and the kernel's ``sub.rn.ftz.f32``)."""
+    hi = t.to(torch.bfloat16)
+    return hi, _ftz(_ftz(t) - _ftz(hi.to(torch.float32))).to(torch.bfloat16)
+
+
+def _tier_parts(t: torch.Tensor, fast: bool) -> Tuple[torch.Tensor, ...]:
+    """An operand as its tier sees it, in bf16: (bf16(t),) for the fast
+    tier, (hi, lo) for bf16x3."""
+    return (t.to(torch.bfloat16),) if fast else split_bf16(t)
+
+
+def _tier_values(t: torch.Tensor, fast: bool) -> Tuple[torch.Tensor, ...]:
+    """:func:`_tier_parts` as float32 values (their products are exact)."""
+    return tuple(p.to(torch.float32) for p in _tier_parts(t, fast))
+
+
+def _gauss_mats(n: int, inverse: bool):
+    """(cos, cos+sin, sin-cos) float32, the kernel's term order."""
+    cos, smc, cps = _dft._gauss_dft_matrices_np(n, inverse)
+    return cos, cps, smc
+
+
+# The plane's four contractions: (axis length, inverse) for W fwd, D fwd,
+# W inv, D inv, the kernel's section order.
+def _sections(W: int, D: int):
+    return ((W, False), (D, False), (W, True), (D, True))
 
 
 @lru_cache(maxsize=16)
-def _plane_mats(W: int, D: int, fast: bool, device: torch.device) -> torch.Tensor:
-    """The 12 Gauss matrices in the kernel's order, packed flat: for
-    (W, fwd), (D, fwd), (W, inv), (D, inv) each of (cos, cos+sin, sin-cos).
-    Pre-rounded to bf16 values for the fast tier."""
-    parts = []
-    for n, inverse in ((W, False), (D, False), (W, True), (D, True)):
-        cos, smc, cps = _dft._gauss_dft_matrices_np(n, inverse)
-        parts += [cos.ravel(), cps.ravel(), smc.ravel()]
-    flat = torch.from_numpy(np.concatenate(parts)).to(device)
-    return _bf16_round(flat) if fast else flat
+def _plane_mats(W: int, D: int, fast: bool, device: torch.device):
+    """The plain version's matrices: for each section the three Gauss
+    matrices, each as its tier's float32-valued parts (see
+    :func:`_tier_values`)."""
+    return [tuple(_tier_values(torch.from_numpy(m).to(device), fast)
+                  for m in _gauss_mats(n, inverse))
+            for n, inverse in _sections(W, D)]
 
 
-def _unpack_mats(flat: torch.Tensor, W: int, D: int):
-    """Split :func:`_plane_mats` into ((cos, cps, smc) x 4) square views."""
-    out, off = [], 0
-    for n in (W, D, W, D):
-        trip = []
-        for _ in range(3):
-            trip.append(flat[off:off + n * n].view(n, n))
-            off += n * n
-        out.append(tuple(trip))
-    return out
+# Tile sizes of csrc/fused_plane.cu: rows of a W-contraction tile, columns
+# of a D-contraction tile, and the depth of one stage.
+_TILE_M, _TILE_N, _TILE_K = 128, 160, 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@lru_cache(maxsize=16)
+def _kernel_mats(W: int, D: int, fast: bool, device: torch.device) -> torch.Tensor:
+    """The kernel's matrices, pre-lowered for its tier and laid out as its
+    wgmma descriptors read them, packed flat in bf16. Per section
+    (:func:`_sections`), per term (cos, cos+sin, sin-cos), per part (bf16;
+    or hi, lo): the matrix zero-padded to (Rp, Kp) rows x depth (Rp a
+    multiple of the section's tile rows, Kp of 16), in 16-deep chunks, each
+    chunk a K-major grid of 8 x 8 core matrices ([Kp/16][Rp/8][2][8][8]).
+    The matrices are symmetric, so rows may index either axis."""
+    flat = []
+    for (n, inverse), rows in zip(_sections(W, D), (_TILE_M, _TILE_N) * 2):
+        Rp, Kp = _round_up(n, rows), _round_up(n, _TILE_K)
+        for m in _gauss_mats(n, inverse):
+            for part in _tier_parts(torch.from_numpy(m), fast):
+                full = torch.zeros((Rp, Kp), dtype=torch.bfloat16)
+                full[:n, :n] = part
+                tiles = full.view(Rp // 8, 8, Kp // 16, 2, 8).permute(2, 0, 3, 1, 4)
+                flat.append(tiles.reshape(-1))
+    return torch.cat(flat).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -184,27 +239,43 @@ def plane_stylize_half_plain(k_re, k_im, spatial, flags, wparams, locs, vals,
     """Plain-PyTorch version of :func:`plane_stylize_half` (same arguments)."""
     H, W, D = spatial
     Hh = k_re.shape[1]
-    rnd = _bf16_round if fast else (lambda t: t)
-    (wf, df, wi, di) = _unpack_mats(_plane_mats(W, D, fast, k_re.device), W, D)
+    (wf, df, wi, di) = _plane_mats(W, D, fast, k_re.device)
 
-    def gauss_sub(m, re, im):  # mat @ plane: contract W
-        cos, cps, smc = m
-        k1 = torch.matmul(cos, rnd(re + im))
-        return k1 - torch.matmul(cps, rnd(im)), k1 + torch.matmul(smc, rnd(re))
+    def gauss(m, re, im, mat_left):
+        def mm(mat, dat):
+            return torch.matmul(mat, dat) if mat_left else torch.matmul(dat, mat)
 
-    def gauss_lane(m, re, im):  # plane @ mat: contract D
-        cos, cps, smc = m
-        k1 = torch.matmul(rnd(re + im), cos)
-        return k1 - torch.matmul(rnd(im), cps), k1 + torch.matmul(rnd(re), smc)
+        def dot(mat, dat):  # the tier's product, in the JAX kernel's order
+            if fast:
+                return mm(mat[0], dat[0])
+            return mm(mat[0], dat[0]) + mm(mat[0], dat[1]) + mm(mat[1], dat[0])
 
-    re, im = gauss_sub(wf, k_re, k_im)
-    re, im = gauss_lane(df, re, im)
+        terms = [_tier_values(t, fast) for t in (re + im, im, re)]
+        k1, k2, k3 = (dot(mt, dt) for mt, dt in zip(m, terms))
+        return k1 - k2, k1 + k3
+
+    re, im = gauss(wf, k_re, k_im, True)  # mat @ plane: contract W
+    re, im = gauss(df, re, im, False)  # plane @ mat: contract D
     if any(flags[:5]):
         w = _plane_weight(spatial, flags, wparams, Hh)
         re, im = re * w, im * w
     _point_writes(re, im, locs, vals, gates, conjs, scales)
-    re, im = gauss_lane(di, re, im)
-    return gauss_sub(wi, re, im)
+    re, im = gauss(di, re, im, False)
+    return gauss(wi, re, im, True)
+
+
+def plane_stylize_half_exact(k_re, k_im, spatial, flags, wparams, locs, vals,
+                             gates, conjs, scales):
+    """The function of :func:`plane_stylize_half` in complex128 through
+    ``torch.fft`` (the plain version's weights and point writes): the
+    yardstick of both tiers' accuracy. Returns float64 (re, im)."""
+    k = torch.fft.fft2(torch.complex(k_re.double(), k_im.double()))
+    if any(flags[:5]):
+        k = k * _plane_weight(spatial, flags, wparams, k_re.shape[1]).double()
+    re, im = k.real.contiguous(), k.imag.contiguous()
+    _point_writes(re, im, locs, vals, gates, conjs, scales)
+    out = torch.fft.ifft2(torch.complex(re, im))
+    return out.real, out.imag
 
 
 # --------------------------------------------------------------------------
@@ -220,8 +291,10 @@ def _lib():
 
         lib = _build.load("fused_plane")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mvtb_fused_plane.argtypes = [p] * 13 + [i] * 8 + [p]
+        lib.mvtb_fused_plane.argtypes = [p] * 12 + [i] * 8 + [p]
         lib.mvtb_fused_plane.restype = i
+        lib.mvtb_fused_plane_scratch_floats.argtypes = [i] * 4
+        lib.mvtb_fused_plane_scratch_floats.restype = ctypes.c_longlong
         lib.mvtb_cuda_error_string.argtypes = [i]
         lib.mvtb_cuda_error_string.restype = ctypes.c_char_p
         _LIB["fused_plane"] = lib
@@ -283,14 +356,15 @@ def plane_stylize_half(k_re, k_im, spatial, flags, wparams, locs, vals, gates,
     if max(W, D) > _dft.MATMUL_DFT_MAX_N:
         raise ValueError(f"plane {W}x{D} exceeds the matmul-DFT bound")
     lib = _lib()
-    mats = _plane_mats(W, D, bool(fast), dev)
+    mats = _kernel_mats(W, D, bool(fast), dev)
     o_re, o_im = torch.empty_like(k_re), torch.empty_like(k_im)
-    s_re, s_im = torch.empty_like(k_re), torch.empty_like(k_im)
+    scratch = torch.empty(lib.mvtb_fused_plane_scratch_floats(N, Hh, W, D),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mvtb_fused_plane(
             k_re.data_ptr(), k_im.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
-            s_re.data_ptr(), s_im.data_ptr(), mats.data_ptr(),
+            scratch.data_ptr(), mats.data_ptr(),
             wparams.data_ptr(), locs.data_ptr(), vals.data_ptr(),
             gates.data_ptr(), conjs.data_ptr(), scales.data_ptr(),
             N, Hh, H, W, D, S, _flag_bits(flags), int(bool(fast)), stream)

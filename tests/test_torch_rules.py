@@ -21,7 +21,8 @@ from mvtb_tpu_torch.train import (create_seg_state, seg_eval_step, seg_train_ste
                                   train_segmentation)
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "mvtb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "mvtb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                               ROOT / "plane_profile.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b"
     r"|^\s*(import|from)\s+mvtb_tpu(\.|\s|$)"
@@ -194,3 +195,11 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
     assert mvtb_tpu_torch.__version__
+
+
+def test_plane_profile_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "plane_profile.py")], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2
+    assert "no CUDA device" in res.stderr

@@ -2,10 +2,10 @@
 against the port's (mvtb_tpu_torch/train/seg.py), on a narrow UNet with
 converted weights, the plane stack and replayed draws.
 
-Logits agree within 1e-4 of their max (float32 convolutions and DFTs in
-another order; the JAX plane kernel's bf16x3 dots). Hard Dice is a step
-function of the logits, so it must be equal wherever no logit lies within
-1e-4 of the threshold.
+Logits agree within 3e-5 of their max (float32 convolutions and DFTs in
+another order; both plane paths split their dots into bf16x3 the same way;
+4.3e-6 measured). Hard Dice is a step function of the logits, so it must be
+equal wherever no logit lies within that bound of the threshold.
 """
 
 import jax
@@ -22,6 +22,7 @@ from mvtb_tpu_torch.ops import fused as tfused
 from mvtb_tpu_torch.train import seg as tseg
 from test_torch_fused_plane import jax_stage_draws
 
+LOGIT_TOL = 3e-5
 STACK = dict(disk_r=(3.0, 6.0), plane_axes=(6.0, 5.0, 3.0), plane_intensity=12.0,
              spike=True, spike_range=(10.0, 11.0), wrap_alpha=0.5, sap_p=0.05)
 
@@ -58,9 +59,9 @@ def test_seg_eval_step_matches_jax():
     logits = logits.numpy()
     assert dice.shape == (B, 3) and logits.shape == (B, 3) + spatial
     scale = float(np.abs(logits_ref).max())
-    assert float(np.abs(logits - logits_ref).max()) < 1e-4 * scale
+    assert float(np.abs(logits - logits_ref).max()) < LOGIT_TOL * scale
 
-    near = (np.abs(logits_ref) < 1e-4 * scale).any(axis=(2, 3, 4))
+    near = (np.abs(logits_ref) < LOGIT_TOL * scale).any(axis=(2, 3, 4))
     assert not near.all()
     np.testing.assert_allclose(dice.numpy()[~near], dice_ref[~near], rtol=1e-6)
 
