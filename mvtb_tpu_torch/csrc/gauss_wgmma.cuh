@@ -7,7 +7,8 @@
 //
 // and finishes with re = k1 - k2, im = k1 + k3. Each product is issued as
 // `wgmma.mma_async ... m64n80k16.f32.bf16.bf16` with both operands in shared
-// memory, accumulated in float32 registers (3 x 40 a thread). Precision
+// memory (the plane kernel) or A in registers (the axis kernels),
+// accumulated in float32 registers (3 x 40 a thread). Precision
 // tiers, those of the TPU kernels (mvtb_tpu/ops/pallas_dft.py:_fast):
 //   bf16   (P = 1): one product per term on bf16-rounded operands;
 //   bf16x3 (P = 2): x = hi + lo with hi = bf16_rn(x), lo = bf16_rn(x - hi)
@@ -23,7 +24,7 @@
 //   (r / 8) * 256 + (k / 8) * 128 + (r % 8) * 16 + (k % 8) * 2 bytes.
 // The writer of a tile must `fence_async_smem()` before the warpgroup's
 // `wgmma` reads it. Also here: the tiers' bf16 split, and the copy pieces
-// that feed such tiles (cp.async, mbarriers, TMA tensor copies).
+// that feed such tiles (cp.async, mbarriers, TMA tensor and bulk copies).
 
 #pragma once
 
@@ -104,6 +105,35 @@ __device__ __forceinline__ void wgmma_m64n80k16(float (&d)[ACC], uint64_t da,
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(1)  // scale-d = 1: accumulate into d
+      : "memory");
+}
+
+// d += A . B^T for a 64 x 16 A tile held in registers and an 80 x 16 B tile
+// (K-major, shared memory). Each warp w of the warpgroup holds rows 16w..16w+15
+// of A; with g = lane / 4 and t = lane % 4, register j holds the bf16 pair
+// (lower half first) at row g + 8 (j & 1), columns 2t, 2t + 1 (+ 8 for j >= 2).
+// The registers must not change until the wgmma has completed.
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[ACC], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
       : "memory");
 }
 
@@ -221,6 +251,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// The same for 8 bytes, both addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+// The same for 16 bytes, both addresses 16-byte aligned (bypassing L1).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -277,6 +319,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, 
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       ::"r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A contiguous copy global -> shared by the copy engine: `bytes` (a multiple
+// of 16, both addresses 16-byte aligned), completing that many bytes of the
+// barrier's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

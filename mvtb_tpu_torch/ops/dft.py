@@ -139,6 +139,30 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+_F32_MIN_NORMAL = 2.0 ** -126
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """Float32 denormals flushed to a zero of their sign."""
+    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
+
+
+def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 (hi, lo) split of a float32 tensor, bit for bit the JAX
+    package's ``pallas_dft._split_bf16`` as XLA computes it: ``hi = bf16(t)``
+    and ``lo = bf16(t - hi)``, both rounded to nearest even, the subtraction
+    with float32 denormals flushed to zero on input and output (XLA's float32
+    arithmetic, and the kernels' ``sub.rn.ftz.f32``)."""
+    hi = t.to(torch.bfloat16)
+    return hi, _ftz(_ftz(t) - _ftz(hi.to(torch.float32))).to(torch.bfloat16)
+
+
+def tier_parts(t: torch.Tensor, fast: bool) -> Tuple[torch.Tensor, ...]:
+    """An operand as a bf16 tensor-core tier sees it, in bf16: (bf16(t),)
+    for the single-pass tier, (hi, lo) for bf16x3."""
+    return (t.to(torch.bfloat16),) if fast else split_bf16(t)
+
+
 @lru_cache(maxsize=128)
 def device_mats(kind: str, n: int, inverse: bool,
                 device: torch.device) -> Tuple[torch.Tensor, ...]:

@@ -17,7 +17,8 @@ Two paths, as in the JAX package:
   mirror average, disk, wrap) -> the one-pass spike / plane-wave point
   writes -> ``irfftn`` -> image-domain salt & pepper. Its backends are
   ``"dft"`` / ``"dft_fast"`` (:mod:`.dft` on ``torch.matmul``),
-  ``"dft_pallas"`` (the hand-written axis kernels of :mod:`.pallas_dft`) and
+  ``"dft_pallas"`` (the hand-written axis kernels of :mod:`.pallas_dft`, at
+  their bf16x3 ``"high"`` tier, as the JAX package runs them) and
   ``"xla"`` (``torch.fft``); ``"auto"`` picks ``"dft"`` on a CUDA device and
   ``"xla"`` on the CPU.
 
@@ -273,7 +274,7 @@ def _forward(x: torch.Tensor, backend: str):
     if backend == "dft_pallas":
         from mvtb_tpu_torch.ops import pallas_dft as _pdft
 
-        return _pdft.rdft_nd_pair(x, axes, "highest")
+        return _pdft.rdft_nd_pair(x, axes, "high")
     return _dft.rdft_nd_pair(x, axes, "default" if backend == "dft_fast"
                              else "highest")
 
@@ -286,7 +287,7 @@ def _inverse(re: torch.Tensor, im: torch.Tensor, spatial, backend: str):
     if backend == "dft_pallas":
         from mvtb_tpu_torch.ops import pallas_dft as _pdft
 
-        return _pdft.irdft_nd_real_pair(re, im, spatial, axes, "highest")
+        return _pdft.irdft_nd_real_pair(re, im, spatial, axes, "high")
     return _dft.irdft_nd_real_pair(re, im, spatial, axes,
                                    "default" if backend == "dft_fast" else "highest")
 

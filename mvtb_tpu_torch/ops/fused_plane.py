@@ -15,7 +15,7 @@ CPU tensor. On a CUDA tensor it launches the kernel or raises.
 
 Precision tiers, the TPU kernel's own: ``fast=False`` (``fft_backend="plane"``)
 is bf16x3: every operand x splits into bfloat16 ``hi = bf16(x)`` and
-``lo = bf16(x - hi)`` (:func:`split_bf16`, the JAX package's ``_split_bf16``)
+``lo = bf16(x - hi)`` (:func:`.dft.split_bf16`, the JAX package's ``_split_bf16``)
 and each product is ``hi.hi + hi.lo + lo.hi`` with float32 accumulation;
 ``fast=True`` (``"plane_fast"``) rounds every operand to bfloat16 once and
 accumulates in float32. The plain version computes the same products
@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 
 from mvtb_tpu_torch.ops import dft as _dft
+from mvtb_tpu_torch.ops.dft import split_bf16  # noqa: F401  (the plane tiers' split, re-exported)
 from mvtb_tpu_torch.ops.fused import (StageDraws, StylizeConfig, _off_of,
                                       _salt_and_pepper, _to_raw_index)
 
@@ -79,33 +80,9 @@ def _shifted(i: torch.Tensor, n: int) -> torch.Tensor:
 # Matrices
 # --------------------------------------------------------------------------
 
-_F32_MIN_NORMAL = 2.0 ** -126
-
-
-def _ftz(t: torch.Tensor) -> torch.Tensor:
-    """Float32 denormals flushed to a zero of their sign."""
-    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
-
-
-def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """bf16 (hi, lo) split of a float32 tensor, bit for bit the JAX
-    package's ``pallas_dft._split_bf16`` as XLA computes it: ``hi = bf16(t)``
-    and ``lo = bf16(t - hi)``, both rounded to nearest even, the subtraction
-    with float32 denormals flushed to zero on input and output (XLA's float32
-    arithmetic, and the kernel's ``sub.rn.ftz.f32``)."""
-    hi = t.to(torch.bfloat16)
-    return hi, _ftz(_ftz(t) - _ftz(hi.to(torch.float32))).to(torch.bfloat16)
-
-
-def _tier_parts(t: torch.Tensor, fast: bool) -> Tuple[torch.Tensor, ...]:
-    """An operand as its tier sees it, in bf16: (bf16(t),) for the fast
-    tier, (hi, lo) for bf16x3."""
-    return (t.to(torch.bfloat16),) if fast else split_bf16(t)
-
-
 def _tier_values(t: torch.Tensor, fast: bool) -> Tuple[torch.Tensor, ...]:
-    """:func:`_tier_parts` as float32 values (their products are exact)."""
-    return tuple(p.to(torch.float32) for p in _tier_parts(t, fast))
+    """:func:`.dft.tier_parts` as float32 values (their products are exact)."""
+    return tuple(p.to(torch.float32) for p in _dft.tier_parts(t, fast))
 
 
 def _gauss_mats(n: int, inverse: bool):
@@ -152,7 +129,7 @@ def _kernel_mats(W: int, D: int, fast: bool, device: torch.device) -> torch.Tens
     for (n, inverse), rows in zip(_sections(W, D), (_TILE_M, _TILE_N) * 2):
         Rp, Kp = _round_up(n, rows), _round_up(n, _TILE_K)
         for m in _gauss_mats(n, inverse):
-            for part in _tier_parts(torch.from_numpy(m), fast):
+            for part in _dft.tier_parts(torch.from_numpy(m), fast):
                 full = torch.zeros((Rp, Kp), dtype=torch.bfloat16)
                 full[:n, :n] = part
                 tiles = full.view(Rp // 8, 8, Kp // 16, 2, 8).permute(2, 0, 3, 1, 4)

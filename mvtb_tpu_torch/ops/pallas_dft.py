@@ -15,21 +15,33 @@ transposed in memory. Every matrix is ``(n_in, n_out)``; the full DFT
 matrices are symmetric, so the sublane form is the JAX kernel's
 ``mat @ tile``.
 
-On a CUDA tensor a wrapper launches the kernel (or raises) and adds one to
-``launches[body]``; on a CPU tensor it runs :func:`plain`, the same function
-in plain PyTorch (``torch.matmul`` over the same views), and counts nothing.
+Precision tiers (:data:`TIERS`), those of the TPU kernels' ``_fast``:
 
-Precision: ``"highest"`` contracts float32 operands with float32
-accumulation. That is more accurate than JAX's ``HIGH`` (an in-kernel
-bf16x3 split), which ``stylize_kspace`` uses for this backend, so the
-port runs ``"highest"`` there.
-``"default"`` rounds every operand (the ``re+im`` sum included) to bfloat16
-and accumulates in float32, as the TPU kernel's single-pass dots.
+* ``"highest"`` (JAX ``HIGHEST``, ``"f32"``): float32 operands, float32
+  accumulation; the default of the public transforms;
+* ``"high"`` (JAX ``HIGH``, ``"3x"``): bf16x3, every operand split into
+  bf16 ``hi, lo`` (:func:`.dft.split_bf16`, bit for bit the JAX
+  ``_split_bf16``) and each product summed as ``hi.hi + (hi.lo + lo.hi)``
+  in float32, the ``re+im`` sum of c2c formed in float32 before its split;
+  the tier ``stylize_kspace`` runs ``dft_pallas`` at, as the JAX package does;
+* ``"default"`` (JAX ``DEFAULT``, ``"1x"``): every operand rounded to bf16
+  once, float32 accumulation.
+
+On a CUDA tensor a wrapper launches the kernel (or raises), adds one to
+``launches[body]`` and to ``tier_launches[(body, route, precision)]``; on a
+CPU tensor it runs :func:`plain`, the same function in plain PyTorch
+(``torch.matmul`` over the same views, on the tier's bf16 parts as float32
+values, whose products are exact), and counts nothing. Routes: r2c and c2c
+at ``"high"`` and ``"default"`` run the tensor-core body (``"wgmma"``), whose
+matrices the host lays out once per matrix set (:func:`pack_mats`); the
+``"highest"`` tier and every tier of c2r run the float32 CUDA-core body
+(``"simt"``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -39,8 +51,19 @@ from mvtb_tpu_torch.ops import dft as _dft
 BODIES = {"r2c": 0, "c2c": 1, "c2r": 2}
 # (data inputs, matrices, outputs) of each body
 ARITY = {"r2c": (1, 2, 2), "c2c": (2, 3, 2), "c2r": (2, 2, 1)}
-# Kernel launches per body, counted by the wrappers on CUDA tensors only.
+TIERS = ("highest", "high", "default")
+# the kernels' tier codes: float32, bf16, bf16x3
+_TIER_CODE = {"highest": 0, "default": 1, "high": 2}
+# bf16 parts of a tensor-core operand
+_PARTS = {"default": 1, "high": 2}
+# Kernel launches per body, and per (body, route, precision), counted by the
+# wrappers on CUDA tensors only.
 launches = {"r2c": 0, "c2c": 0, "c2r": 0}
+tier_launches: Counter = Counter()
+
+# Tensor-core tiles of csrc/axis_dft.cu: output columns of one wgmma chunk
+# and the depth of one stage.
+_CHUNK, _DEPTH = 80, 16
 
 _LIB = {}
 
@@ -53,27 +76,57 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mvtb_axis_dft.argtypes = [i, i, i] + [p] * 7 + [ll] * 4 + [p]
         lib.mvtb_axis_dft.restype = i
+        lib.mvtb_axis_dft_tc.argtypes = [i, i, i, i] + [p] * 5 + [ll] * 4 + [p]
+        lib.mvtb_axis_dft_tc.restype = i
         lib.mvtb_axis_dft_error_string.argtypes = [i]
         lib.mvtb_axis_dft_error_string.restype = ctypes.c_char_p
         _LIB["axis_dft"] = lib
     return _LIB["axis_dft"]
 
 
+def check_tier(precision: str) -> str:
+    """``precision`` if it is one of :data:`TIERS`, else ValueError."""
+    if precision not in TIERS:
+        raise ValueError(f"precision must be one of {TIERS}, got {precision!r}")
+    return precision
+
+
+def route(body: str, precision: str) -> str:
+    """The kernel body that serves ``body`` at ``precision`` on the card."""
+    if check_tier(precision) == "highest" or body == "c2r":
+        return "simt"
+    return "wgmma"
+
+
 # --------------------------------------------------------------------------
 # Plain versions
 # --------------------------------------------------------------------------
+
+def _tier_values(t: torch.Tensor, precision: str) -> Tuple[torch.Tensor, ...]:
+    """An operand as its tier sees it, as float32 values: ``(t,)``,
+    ``(bf16(t),)`` or the bf16x3 ``(hi, lo)``."""
+    if precision == "highest":
+        return (t,)
+    return tuple(p.to(torch.float32) for p in _dft.tier_parts(t, precision == "default"))
+
 
 def plain(body: str, lane: bool, ins: Sequence[torch.Tensor],
           mats: Sequence[torch.Tensor], precision: str = "highest"
           ) -> Tuple[torch.Tensor, ...]:
     """The kernel body ``body`` in plain PyTorch, on the (M, n_in) view
     (``lane``) or the (A, n_in, B) view, in the same precision tier."""
-    fast = _dft.is_fast(precision)
-    rnd = _dft.bf16_round if fast else (lambda t: t)
-    mats = [rnd(m) for m in mats]
+    check_tier(precision)
+    mats = [_tier_values(m, precision) for m in mats]
+
+    def dot(x, m):
+        return torch.matmul(x, m) if lane else torch.matmul(m.T, x)
 
     def mm(x, m):
-        return torch.matmul(rnd(x), m) if lane else torch.matmul(m.T, rnd(x))
+        xs = _tier_values(x, precision)
+        if len(xs) == 1:
+            return dot(xs[0], m[0])
+        (xh, xl), (mh, ml) = xs, m
+        return dot(xh, mh) + (dot(xh, ml) + dot(xl, mh))
 
     if body == "r2c":
         (x,), (cos, sin) = ins, mats
@@ -86,6 +139,67 @@ def plain(body: str, lane: bool, ins: Sequence[torch.Tensor],
         (re, im), (cos, sin) = ins, mats
         return (mm(re, cos) - mm(im, sin),)
     raise ValueError(f"unknown kernel body {body!r}")
+
+
+# --------------------------------------------------------------------------
+# The tensor-core body's matrices
+# --------------------------------------------------------------------------
+
+def mat_layout(body: str, n_out: int) -> Tuple[int, int, int]:
+    """(terms, chunks, rows) of the tensor-core body's matrix operand:
+    c2c contracts three Gauss matrices, each in chunks of 80 output
+    columns; r2c one matrix ``[cos | sin]`` of ``2 n_out`` columns, two
+    chunks at a time where it is wider than one."""
+    if body == "c2c":
+        return 3, 1, n_out
+    if body == "r2c":
+        return 1, (1 if 2 * n_out <= _CHUNK else 2), 2 * n_out
+    raise ValueError(f"no tensor-core body for {body!r}")
+
+
+def pack_mats(body: str, mats: Sequence[torch.Tensor], precision: str
+              ) -> torch.Tensor:
+    """The tensor-core body's matrices, pre-lowered for the tier and laid
+    out as its wgmma descriptors read them, packed flat in bf16 on the
+    matrices' device. Each term's (n_in, n_out) matrix (r2c: ``[cos|sin]``)
+    is transposed to (rows, n_in), split into its tier's bf16 parts and
+    zero-padded to (Rp, Kp): Rp a multiple of the group of ``80 * chunks``
+    output columns, Kp of 16. Order: [group][16-deep step][term][part], each
+    a K-major grid of 8 x 8 core matrices ([group rows / 8][2][8][8]), so
+    one stage of one group is one contiguous block."""
+    terms, nch, rows = mat_layout(body, mats[0].shape[1])
+    if check_tier(precision) == "highest":
+        raise ValueError("the tensor-core body has no float32 tier")
+    parts = _PARTS[precision]
+    n_in = mats[0].shape[0]
+    group = _CHUNK * nch
+    Rp = -(-rows // group) * group
+    Kp = -(-n_in // _DEPTH) * _DEPTH
+    full = torch.zeros((terms, parts, Rp, Kp), dtype=torch.bfloat16,
+                       device=mats[0].device)
+    cols = [torch.cat(tuple(mats), 1)] if body == "r2c" else list(mats)
+    for t, m in enumerate(cols):
+        for p, part in enumerate(_dft.tier_parts(m, parts == 1)):
+            full[t, p, :rows, :n_in] = part.T
+    tiles = full.view(terms, parts, Rp // group, group // 8, 8, Kp // _DEPTH, 2, 8)
+    return tiles.permute(2, 5, 0, 1, 3, 6, 4, 7).contiguous().view(-1)
+
+
+# Packed matrices of the matrix sets the wrappers saw, keyed by the
+# matrices' identity and version (an in-place change packs anew); the entry
+# keeps the matrices alive, so an id cannot be reused while it is cached.
+_PACKED: dict = {}
+_PACKED_MAX = 64
+
+
+def _packed(body: str, mats: Sequence[torch.Tensor], precision: str) -> torch.Tensor:
+    key = (body, precision) + tuple((id(m), m._version) for m in mats)
+    hit = _PACKED.get(key)
+    if hit is None:
+        if len(_PACKED) >= _PACKED_MAX:
+            _PACKED.pop(next(iter(_PACKED)))
+        hit = _PACKED[key] = (tuple(mats), pack_mats(body, mats, precision))
+    return hit[1]
 
 
 # --------------------------------------------------------------------------
@@ -108,7 +222,7 @@ def _call(body: str, lane: bool, ins, mats, precision: str):
     n_ins, n_mats, n_outs = ARITY[body]
     if len(ins) != n_ins or len(mats) != n_mats:
         raise ValueError(f"{body} takes {n_ins} inputs and {n_mats} matrices")
-    fast = _dft.is_fast(precision)
+    path = route(body, precision)
     dev = ins[0].device
     if dev.type == "cpu":
         return plain(body, lane, ins, mats, precision)
@@ -132,18 +246,28 @@ def _call(body: str, lane: bool, ins, mats, precision: str):
     if any(n == 0 for n in out_view) or n_in == 0:
         return outs
     ptr = [t.data_ptr() for t in ins] + [None] * (2 - n_ins)
-    mptr = [m.data_ptr() for m in mats] + [None] * (3 - n_mats)
     optr = [o.data_ptr() for o in outs] + [None] * (2 - n_outs)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mvtb_axis_dft(BODIES[body], int(lane), int(fast), *ptr,
-                                *mptr, *optr, batch, n_in, n_out, length,
-                                stream)
+        if path == "wgmma":
+            packed = _packed(body, mats, precision)
+            _, nch, _ = mat_layout(body, n_out)
+            cols = length if lane else batch * length
+            err = lib.mvtb_axis_dft_tc(BODIES[body], int(lane), _PARTS[precision],
+                                       nch, *ptr, packed.data_ptr(), *optr,
+                                       cols, n_in, n_out, 1 if lane else length,
+                                       stream)
+        else:
+            mptr = [m.data_ptr() for m in mats] + [None] * (3 - n_mats)
+            err = lib.mvtb_axis_dft(BODIES[body], int(lane), _TIER_CODE[precision],
+                                    *ptr, *mptr, *optr, batch, n_in, n_out,
+                                    length, stream)
     if err != 0:
         msg = lib.mvtb_axis_dft_error_string(err).decode()
         raise RuntimeError(f"axis_dft {body} kernel launch failed: {msg} ({err})")
     launches[body] += 1
+    tier_launches[(body, path, precision)] += 1
     return outs
 
 

@@ -13,9 +13,11 @@ order, after which a split's lo may round to a neighbouring bf16 value on
 some elements, a step of 2^-17 of that element; the kernel's error against
 a complex128 ``torch.fft`` version is also held to at most 3x the plain
 version's), 1e-5 for the axis kernels' ``highest`` tier (float32 on both
-sides, another summation order), and 2e-2 for ``plane_fast`` and
-``default`` (bf16 operands on both sides; an intermediate may round to the
-neighbouring bf16 value). The plane shapes
+sides, another summation order), 5e-5 for their ``high`` tier (bf16x3 on
+both sides, the plane bound and reason; r2c and c2c on the tensor cores,
+also held to 3x the plain version's error against complex128), and 2e-2 for
+``plane_fast`` and ``default`` (bf16 operands on both sides; an
+intermediate may round to the neighbouring bf16 value). The plane shapes
 include the eval slice's (8, 240, 240, 160), the bench's (16, 240, 240,
 155) and a plane wider than one kernel tile (520 x 300). The salt & pepper
 kernel must be bit-equal to its plain version (the same Philox words and
@@ -125,7 +127,7 @@ def test_plane_kernel_rejects_bad_input(cuda_device):
     assert fused_plane.plane_stylize_half.launches == before
 
 
-AXIS_TOL = {"highest": 1e-5, "default": 2e-2}
+AXIS_TOL = {"highest": 1e-5, "high": 5e-5, "default": 2e-2}
 # (lane view (M, n), sublane view (A, n, B)): odd, even, and the ragged
 # extents of the train and bench shapes
 AXIS_VIEWS = [((7, 13), (3, 7, 11)), ((130, 64), (5, 128, 33)),
@@ -148,24 +150,59 @@ def _axis_case(body, lane, view, g, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("lane", [True, False], ids=["lane", "sublane"])
 @pytest.mark.parametrize("body", ["r2c", "c2c", "c2r"])
 def test_axis_kernel_matches_plain(body, lane, precision, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+    key = (body, pallas_dft.route(body, precision), precision)
     for views in AXIS_VIEWS:
         view = views[0] if lane else views[1]
         ins, mats = _axis_case(body, lane, view, g, cuda_device)
-        before = pallas_dft.launches[body]
+        before, by_route = pallas_dft.launches[body], pallas_dft.tier_launches[key]
         got = call(body, ins, mats, precision)
         assert pallas_dft.launches[body] == before + 1
+        assert pallas_dft.tier_launches[key] == by_route + 1
         ref = pallas_dft.plain(body, lane, ins, mats, precision)
         torch.cuda.synchronize()
         assert len(got) == len(ref) == pallas_dft.ARITY[body][2]
         for a, b in zip(got, ref):
             assert a.shape == b.shape
             assert rel_err(a, b) <= AXIS_TOL[precision], (body, lane, view)
+
+
+def _exact(body, lane, ins, inverse):
+    """complex128 torch.fft of an r2c (half matrix on the lane, full on the
+    sublane) or c2c call, as (re, im)."""
+    dim = -1 if lane else 1
+    if body == "r2c":
+        x = ins[0].double()
+        k = torch.fft.rfft(x, dim=dim) if lane else torch.fft.fft(x, dim=dim)
+    else:
+        z = torch.complex(ins[0].double(), ins[1].double())
+        k = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
+    return k.real, k.imag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", [True, False], ids=["lane", "sublane"])
+@pytest.mark.parametrize("body", ["r2c", "c2c"])
+def test_tensor_core_body_is_as_accurate_as_plain(body, lane, cuda_device):
+    """At ``high`` the tensor-core kernel's error against complex128 is at
+    most EXACT_RATIO times the plain version's, at the train and bench
+    views' extents."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+    for view in ([(4096, 64), (2048, 155)] if lane else [(8, 128, 4224), (64, 240, 78)]):
+        ins, mats = _axis_case(body, lane, view, g, cuda_device)
+        if body == "c2c":
+            mats = dft.device_mats("gauss", view[-1] if lane else view[1], True, cuda_device)
+        got = call(body, ins, mats, "high")
+        ref = pallas_dft.plain(body, lane, ins, mats, "high")
+        exact = _exact(body, lane, ins, inverse=body == "c2c")
+        torch.cuda.synchronize()
+        assert complex_rel_err(got, exact) <= EXACT_RATIO * complex_rel_err(ref, exact), view
 
 
 @pytest.mark.cuda
@@ -209,13 +246,19 @@ def test_general_stylize_on_the_card_matches_cpu(backend, cuda_device):
     x = torch.randn(2, 3, 20, 18, 15, generator=g)
     draws = fused.sample_draws(cfg, (20, 18, 15), 2, 3, generator=g, device="cpu")
     before = dict(pallas_dft.launches)
+    high = {b: pallas_dft.tier_launches[(b, pallas_dft.route(b, "high"), "high")]
+            for b in before}
     got = fused.stylize_batch(x, cfg, draws=draws, device=cuda_device)
     torch.cuda.synchronize()
     ref = fused.stylize_batch(x, cfg, draws=draws, device="cpu")
-    if backend == "dft_pallas":
+    if backend == "dft_pallas":  # every launch at high, r2c and c2c on the tensor cores
         assert {k: pallas_dft.launches[k] - before[k] for k in before} == \
             {"r2c": 1, "c2c": 4, "c2r": 1}
-    assert rel_err(got.cpu(), ref) <= 1e-5
+        assert {b: pallas_dft.tier_launches[(b, pallas_dft.route(b, "high"), "high")]
+                - high[b] for b in before} == {"r2c": 1, "c2c": 4, "c2r": 1}
+    # dft_pallas: bf16x3 on both sides, the axis kernels' high bound
+    tol = AXIS_TOL["high"] if backend == "dft_pallas" else 1e-5
+    assert rel_err(got.cpu(), ref) <= tol
 
 
 # the pointwise kernels: counts that are and are not multiples of 4, and an
