@@ -25,8 +25,9 @@ order, each fatal on failure:
    against its plain version at the views of the train shape (8, 128, 128,
    64), the bench shape (16, 240, 240, 155) and an odd (3, 7, 13, 11), at
    most 1e-5 (``highest``: float32 CUDA cores), 5e-5 (``high``: bf16x3, on
-   the tensor cores for r2c and c2c) and 2e-2 (``default``); at ``high`` the
-   r2c and c2c kernels' error against a complex128 ``torch.fft`` version at
+   the tensor cores) and 2e-2 (``default``, tensor cores); at ``high`` each
+   kernel's error against a complex128 ``torch.fft`` version (``irfft`` for
+   c2r on the half matrix, the real part of ``ifft`` on the full one) at
    most 3x the plain version's, at the train and bench views;
 4. slice phase (corrupted-validation inference): a small end-to-end
    reference (``seg_eval_step`` on the card against the same step on the
@@ -46,7 +47,7 @@ order, each fatal on failure:
    then ``train_segmentation`` for 6 steps at B=2, 4x128x128x64 with the
    full-width UNet in bfloat16, ``reference_optimizer`` and the bench stack;
    it must launch r2c, c2c and c2r 1, 4 and 1 times per step, all at
-   ``high``, r2c and c2c on the tensor-core body, never call a plain
+   ``high`` on the tensor-core body, never call a plain
    version on a CUDA tensor, give a finite loss at every step and change
    the parameters;
 6. pointwise kernel phase: the salt & pepper and polar kernels against
@@ -86,6 +87,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -206,6 +208,32 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def _entry(mangled: str) -> str:
+    """A kernel's entry name, a template's arguments decoded from the
+    mangled name (``axis_tc_kernel<2,1,2,2>``)."""
+    t = re.search(r"\d([a-z_]+)I((?:L[a-z]\d+E)+)E", mangled)
+    if t is None:
+        return mangled
+    return f"{t.group(1)}<{','.join(re.findall(r'L[a-z](\d+)E', t.group(2)))}>"
+
+
+def ptxas_lines(name: str, log: str) -> list:
+    """ptxas's registers, spills and register warnings of every kernel in a
+    build log, each line led by the kernel's entry name."""
+    rows, entry = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = _entry(m.group(1))
+        elif "registers" in line or "spill" in line:
+            w = re.search(r" in function '(\S+)'", line)
+            msg = line.split(":", 1)[-1].strip()
+            if w:
+                msg = msg.replace(w.group(0), "")
+            rows.append(f"ptxas {name} {_entry(w.group(1)) if w else entry}: {msg}")
+    return rows
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -461,8 +489,7 @@ def axis_bound(body, lane, view, mats, precision):
     input and matrix read once, each output written once; 2 operations per
     multiply-add over every product of the body, at the float32 CUDA-core
     rate for ``highest``, else at the bf16 tensor-core rate with three bf16
-    products a product for bf16x3 (``high``; c2r's bf16x3 body runs on
-    CUDA cores, but its bound is the card's)."""
+    products a product for bf16x3 (``high``)."""
     from mvtb_tpu_torch.ops import pallas_dft
 
     n_data, n_mats, n_outs = pallas_dft.ARITY[body]
@@ -496,29 +523,36 @@ def axis_library(body, lane, ins, n, inverse):
     return None
 
 
-def axis_exact(body, lane, ins, kind, inverse):
-    """The complex128 ``torch.fft`` version of an r2c or c2c axis-kernel
-    call, as (re, im) float64 tensors: ``rfft`` on the lane's half matrix,
-    else ``fft`` (``ifft`` for an inverse) along the transform axis."""
+def axis_exact(body, lane, ins, kind, n, inverse):
+    """The complex128 ``torch.fft`` version of an axis-kernel call, as
+    float64 tensors: r2c (re, im) by ``rfft`` on the lane's half matrix,
+    else ``fft``; c2c (re, im) by ``fft`` (``ifft`` for an inverse); c2r
+    (out,) by ``irfft`` to n points on the half matrix, else the real part
+    of ``ifft``; each along the transform axis."""
     dim = -1 if lane else 1
     if body == "r2c":
         x = ins[0].double()
         k = torch.fft.rfft(x, dim=dim) if kind == "half" else torch.fft.fft(x, dim=dim)
-    else:
-        z = torch.complex(ins[0].double(), ins[1].double())
-        k = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
+        return k.real, k.imag
+    z = torch.complex(ins[0].double(), ins[1].double())
+    if body == "c2r":
+        if kind == "half_inv":
+            return (torch.fft.irfft(z, n=n, dim=dim),)
+        return (torch.fft.ifft(z, dim=dim).real,)
+    k = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
     return k.real, k.imag
 
 
 def complex_rel_err(got, ref) -> float:
-    """Largest error of (re, im) over the largest |component| of ``ref``."""
+    """Largest error of the outputs (re, im, or c2r's one) over the
+    largest |component| of ``ref``."""
     scale = max(float(b.abs().max()) for b in ref)
     return max(float((a.double() - b).abs().max()) for a, b in zip(got, ref)) / scale
 
 
 def axis_kernel_phase(dev) -> dict:
     """Every axis kernel against its plain version at every view and tier;
-    at the path's tier, r2c and c2c against complex128 at the train and
+    at the path's tier, every kernel against complex128 at the train and
     bench views (the kernel's error at most EXACT_RATIO times the plain
     version's)."""
     from mvtb_tpu_torch.ops import pallas_dft
@@ -539,8 +573,8 @@ def axis_kernel_phase(dev) -> dict:
                                   f"{err:.3e} > {tol}")
                 key = f"{body} {'lane' if lane else 'sublane'} {precision} {name}"
                 worst[key] = max(worst.get(key, 0.0), err)
-                if precision == PATH_TIER and body != "c2r" and name != "odd":
-                    yard = axis_exact(body, lane, ins, kind, inverse)
+                if precision == PATH_TIER and name != "odd":
+                    yard = axis_exact(body, lane, ins, kind, n, inverse)
                     k_err, p_err = complex_rel_err(got, yard), complex_rel_err(ref, yard)
                     check(k_err <= EXACT_RATIO * p_err,
                           f"{name} {label} {precision}: kernel vs complex128 {k_err:.3e}, "
@@ -754,8 +788,8 @@ def train_phase(dev) -> dict:
         key = (body, pallas_dft.route(body, PATH_TIER), PATH_TIER)
         check(tier_launches.get(key, 0) == launches[body],
               f"{body}: {tier_launches} launches by route and tier, expected all {key}")
-    check(pallas_dft.route("c2c", PATH_TIER) == pallas_dft.route("r2c", PATH_TIER) == "wgmma",
-          "r2c and c2c do not run the tensor-core body on the path")
+    check(all(pallas_dft.route(b, PATH_TIER) == "wgmma" for b in LAUNCHES_PER_STEP),
+          "an axis kernel does not run the tensor-core body on the path")
     check(plane_launches == 0, "the train path launched the plane kernel")
     check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
@@ -1104,9 +1138,8 @@ def main() -> int:
     for name in _build.SOURCES:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.is_file():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    out(f"ptxas {name}: {line.strip()}")
+            for line in ptxas_lines(name, log.read_text()):
+                out(line)
 
     t0 = time.perf_counter()
     worst = kernel_phase(dev)

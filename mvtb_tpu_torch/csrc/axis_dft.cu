@@ -26,27 +26,37 @@
 //
 // Two bodies, one kernel per (body, tier):
 //
-// 1. axis_tc_kernel: r2c and c2c at bf16x3 and bf16, on the tensor cores.
+// 1. axis_tc_kernel: every body at bf16x3 and bf16, on the tensor cores.
 //    What bounds it on this card: bytes. At bf16x3 a c2c pass at the bench
 //    shape (16 x 240 x 240 x 78 complex) is 1.15 GB of data and 0.31 TFLOP of
 //    bf16 products: 0.34 ms at 3.35 TB/s against 0.31 ms at 989 TFLOP/s; r2c
-//    at the train shape is 68 MB against 3 GFLOP. So the design keeps bytes
-//    in flight and does the split in their shadow; the tensor cores' rate is
-//    not the lever. It is a GEMM with the data as the wgmma A operand and
-//    the matrix as B: output rows are data points c (lane: the rows m of the
-//    (len, n_in) view; sublane: the flat column q = a * len + b of the
-//    (batch, n_in, len) view, so one tile spans several slabs when len is
-//    narrow, 33 or 78 at the path's W pass), output columns the transform's
-//    outputs r, the contraction the transform axis j. A block of two
-//    warpgroups (256 threads) owns 128 data points (64 a warpgroup) and one
-//    group of output columns: 80 for c2c (three Gauss accumulators of 64 x 80
-//    a warpgroup, 120 registers a thread), 80 or 160 for r2c, whose one matrix
-//    is [cos | sin] (2 n_out columns, 66 at D = 64, 156 at D = 155) in one or
-//    two 80-wide accumulators. The block is persistent: it walks its items
-//    (tile, group) with the stage loop flattened over them, so the next
-//    item's copies are in flight while an item's epilogue stores; its
-//    indices are 32-bit counters (a 64-bit division once a stage a thread
-//    cost about a third of the time). Per 16-deep stage, through a ring of 4
+//    and c2r at the bench shape move 1.15 GB against 0.13 TFLOP; at the train
+//    shape 68 MB against 3 GFLOP. So the design keeps bytes in flight and
+//    does the split in their shadow; the tensor cores' rate is not the
+//    lever. It is a GEMM with the data as the wgmma A operand and the matrix
+//    as B: output rows are data points c (lane: the rows m of the (len, n_in)
+//    view; sublane: the flat column q = a * len + b of the (batch, n_in, len)
+//    view, so one tile spans several slabs when len is narrow, 33 or 78 at
+//    the path's W pass), output columns the transform's outputs r, the
+//    contraction the transform axis j. A block of two warpgroups (256
+//    threads) owns 128 data points (64 a warpgroup) and one group of output
+//    columns: 80 for c2c (three Gauss accumulators of 64 x 80 a warpgroup,
+//    120 registers a thread); 80 or 160 for r2c, whose one matrix is
+//    [cos | sin] (2 n_out columns, 66 at D = 64, 156 at D = 155) in one or
+//    two 80-wide accumulators; 80 or 160 for c2r (n_out columns, 64 or 155 on
+//    the path's lane), one or two 80-wide accumulators fed by two terms,
+//    re . cos and im . (-sin), the sign folded into the packed matrix
+//    (negation is exact in both bf16 splits). c2r keeps two terms of n_in
+//    depth rather than one term [re | im] of 2 n_in: both inputs are copied
+//    at the same contraction step, as c2c's are, so a stage carries twice the
+//    bytes (more in flight for the same ring) and the stages, each a round of
+//    barriers, are half as many (5 at the bench's n_in = 78, 3 at the train's
+//    33, against 10 and 5 or 6); the cost is a second fragment set of 8
+//    registers a part. The block is persistent: it walks its items (tile,
+//    group) with the stage loop flattened over them, so the next item's
+//    copies are in flight while an item's epilogue stores; its indices are
+//    32-bit counters (a 64-bit division once a stage a thread cost about a
+//    third of the time). Per 16-deep stage, through a ring of 4
 //    shared-memory slots, 2 stages ahead:
 //      - one thread asks the copy engine for the stage's matrix block (every
 //        term and part, pre-lowered on the host in the wgmma core-matrix
@@ -54,38 +64,40 @@
 //        on the slot's mbarrier; every thread issues cp.async copies of the
 //        float32 data, 16 bytes a copy where rows and bases allow it (lane:
 //        n_in % 4 == 0; sublane: len % 4 == 0), 8 where they are even (the
-//        bench W pass, len 78), else 4, coalesced along the view's
-//        contiguous axis. TMA tensor maps need 16-byte strides, which the
-//        path's views (33, 78, 155 floats) do not have;
+//        bench W pass and c2r's bench rows, 78), else 4, coalesced along the
+//        view's contiguous axis. TMA tensor maps need 16-byte strides, which
+//        the path's views (33, 78, 155 floats) do not have;
 //      - every thread loads its A fragments from the staged data (two data
-//        points, four contraction steps of each), forms re+im in float32 and
-//        splits (split8, sub.rn.ftz) straight into the registers wgmma reads
-//        A from: the converted operand never goes through shared memory, and
-//        the tensor cores read only the matrix there. The fragments alternate
-//        between two register sets, so a stage is converted while the tensor
-//        cores still run the one before;
+//        points, four contraction steps of each), forms c2c's re+im in
+//        float32 and splits (split8, sub.rn.ftz) straight into the registers
+//        wgmma reads A from: the converted operand never goes through shared
+//        memory, and the tensor cores read only the matrix there. The
+//        fragments alternate between two register sets, so a stage is
+//        converted while the tensor cores still run the one before;
 //      - each warpgroup issues its 3 (bf16) or 9 (bf16x3) wgmma m64n80k16 for
-//        c2c, 1 or 3 per chunk for r2c, waiting only for the stage before.
+//        c2c, 1 or 3 per chunk and term for r2c and c2r, waiting only for the
+//        stage before.
 //    The epilogue stores each accumulator element scalar in the sublane
 //    view (a warp's stores of one output column are 8 consecutive data
-//    points, one 32-byte sector); r2c on the lane stages its tile through
-//    shared memory, so rows of out0 and out1 leave as contiguous runs.
-//    ptxas: c2c at bf16x3 takes 255 registers with a few bytes of spills,
-//    and reports (C7517) a wgmma wait it injects to protect registers the
-//    tensor cores write (PERF.md).
+//    points, one 32-byte sector); on the lane, r2c and c2r stage their tile
+//    through shared memory so rows leave as contiguous runs (r2c all of
+//    [cos | sin] at once, c2r one 80-column chunk at a time, which keeps its
+//    two-input ring of 4 slots inside the 227 KB a block may use).
+//    ptxas: c2c at bf16x3 takes 255 registers with a few bytes of spills;
+//    c2r on the lane at bf16x3 128 registers with one chunk (train) and 228
+//    with two (bench), no spills; every instantiation reports (C7517) a
+//    wgmma wait ptxas injects to protect registers the tensor cores write
+//    (PERF.md).
 //
-// 2. axis_dft_kernel: the float32 tier of r2c and c2c, and c2r at every
-//    tier, on CUDA cores. The float32 tier has no tensor-core form at
-//    float32 accuracy. What bounds it: operations (the four c2c passes of one
-//    stylize call at the bench shape are 0.41 TFLOP of float32 FMA, 6.2 ms at
-//    67 TFLOP/s, against 1.4 ms of bytes). A shared-memory-tiled SGEMM:
-//    64 x 64 output tiles, depth 16 per stage, 256 threads with a 4 x 4
-//    register tile of every product of the body (three accumulators per
-//    output for c2c, two for r2c and c2r). At bf16x3 the rows' operand is stored
-//    as (hi, lo), the columns' as (hi + lo, hi), and each multiply-add is two
-//    FMAs: hi * (hi + lo) is hi.hi + hi.lo exactly, then + lo.hi. Every edge
-//    is masked, offsets are 64-bit, the grid is one flat index over (batch,
-//    row tiles, column tiles).
+// 2. axis_dft_kernel: the float32 tier of every body, on CUDA cores: it has
+//    no tensor-core form at float32 accuracy. What bounds it: operations
+//    (the four c2c passes of one stylize call at the bench shape are 0.41
+//    TFLOP of float32 FMA, 6.2 ms at 67 TFLOP/s, against 1.4 ms of bytes). A
+//    shared-memory-tiled SGEMM: 64 x 64 output tiles, depth 16 per stage,
+//    256 threads with a 4 x 4 register tile of every product of the body
+//    (three accumulators per output for c2c, two for r2c and c2r). Every
+//    edge is masked, offsets are 64-bit, the grid is one flat index over
+//    (batch, row tiles, column tiles).
 //
 // The C entry points launch on the given stream, allocate nothing and
 // return cudaGetLastError() (or the error of a refused configuration).
@@ -101,11 +113,9 @@
 namespace {
 
 enum Body : int { R2C = 0, C2C = 1, C2R = 2 };
-// Tier codes of the entry points: float32, bf16, bf16x3.
-enum Tier : int { F32 = 0, BF16 = 1, BF16X3 = 2 };
 
 // ---------------------------------------------------------------------------
-// 1. The float32 tier, and c2r at every tier: CUDA cores.
+// 1. The float32 tier: CUDA cores.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;   // output rows per tile
@@ -131,20 +141,6 @@ struct Args {
   long long n_in, n_out, len;
   long long tiles_r, tiles_c;
 };
-
-// An operand as the tier sees it: itself (F32), bf16_rn of it (BF16), or
-// its bf16x3 (hi, lo) parts as float32 values (BF16X3).
-template <int TIER>
-__device__ __forceinline__ void tier_parts(float x, float (&v)[TIER == BF16X3 ? 2 : 1]) {
-  if constexpr (TIER == F32) {
-    v[0] = x;
-  } else {
-    const float hi = __bfloat162float(__float2bfloat16_rn(x));
-    v[0] = hi;
-    if constexpr (TIER == BF16X3)
-      v[1] = __bfloat162float(__float2bfloat16_rn(gauss_wgmma::sub_ftz(x, hi)));
-  }
-}
 
 // The data operands of one element at offset o, in product order:
 // r2c (x); c2c (re+im, im, re); c2r (re, im).
@@ -176,17 +172,16 @@ __device__ __forceinline__ void load_mats(const Args& p, size_t o, bool ok,
 }
 
 // One output tile. The A operand (rows of the tile) and the B operand
-// (columns) sit in shared memory as [operand][part][depth][row or column]:
+// (columns) sit in shared memory as [operand][depth][row or column]:
 //   lane:    A = data rows m, B = matrices;
 //   sublane: A = matrices read along n_out, B = data columns b.
-template <int BODY, bool LANE, int TIER>
+template <int BODY, bool LANE>
 __global__ void __launch_bounds__(NT) axis_dft_kernel(Args p) {
   constexpr int ND = Arity<BODY>::ND, NP = Arity<BODY>::NP;
   constexpr int NA = LANE ? ND : NP;
   constexpr int NB = LANE ? NP : ND;
-  constexpr int PARTS = TIER == BF16X3 ? 2 : 1;
-  __shared__ __align__(16) float sa[NA][PARTS][BK][BM + PAD];
-  __shared__ __align__(16) float sb[NB][PARTS][BK][BN + PAD];
+  __shared__ __align__(16) float sa[NA][BK][BM + PAD];
+  __shared__ __align__(16) float sb[NB][BK][BN + PAD];
 
   long long bid = blockIdx.x;
   const long long tc = bid % p.tiles_c;
@@ -215,7 +210,7 @@ __global__ void __launch_bounds__(NT) axis_dft_kernel(Args p) {
 #pragma unroll
     for (int i = 0; i < BM * BK / NT; ++i) {
       const int e = tid + i * NT;
-      float v[NA], w[PARTS];
+      float v[NA];
       int kk, ii;
       if constexpr (LANE) {  // data: in[m][j], contiguous along j
         kk = e % BK, ii = e / BK;
@@ -227,11 +222,7 @@ __global__ void __launch_bounds__(NT) axis_dft_kernel(Args p) {
         load_mats<BODY>(p, (size_t)j * (size_t)p.n_out + (size_t)k, k < R && j < K, v);
       }
 #pragma unroll
-      for (int t = 0; t < NA; ++t) {
-        tier_parts<TIER>(v[t], w);
-#pragma unroll
-        for (int q = 0; q < PARTS; ++q) sa[t][q][kk][ii] = w[q];
-      }
+      for (int t = 0; t < NA; ++t) sa[t][kk][ii] = v[t];
     }
     // B tile: BK depth x BN columns, contiguous along the column
 #pragma unroll
@@ -240,57 +231,32 @@ __global__ void __launch_bounds__(NT) axis_dft_kernel(Args p) {
       const int jj = e % BN, kk = e / BN;
       const long long c = c0 + jj, j = k0 + kk;
       const bool ok = c < C && j < K;
-      float v[NB], w[PARTS];
+      float v[NB];
       if constexpr (LANE) {  // matrices: mat[j][c]
         load_mats<BODY>(p, (size_t)j * (size_t)p.n_out + (size_t)c, ok, v);
       } else {  // data: in[a][j][c]
         load_data<BODY>(p, in_base + (size_t)j * (size_t)p.len + (size_t)c, ok, v);
       }
 #pragma unroll
-      for (int t = 0; t < NB; ++t) {
-        tier_parts<TIER>(v[t], w);
-        if constexpr (PARTS == 2) {  // (hi + lo, hi): see the product loop
-          sb[t][0][kk][jj] = w[0] + w[1];
-          sb[t][1][kk][jj] = w[0];
-        } else {
-          sb[t][0][kk][jj] = w[0];
-        }
-      }
+      for (int t = 0; t < NB; ++t) sb[t][kk][jj] = v[t];
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float4 av[NA][PARTS], bv[NB][PARTS];
+      float4 av[NA], bv[NB];
 #pragma unroll
-      for (int t = 0; t < NA; ++t)
+      for (int t = 0; t < NA; ++t) av[t] = *reinterpret_cast<const float4*>(&sa[t][kk][ty * 4]);
 #pragma unroll
-        for (int q = 0; q < PARTS; ++q)
-          av[t][q] = *reinterpret_cast<const float4*>(&sa[t][q][kk][ty * 4]);
-#pragma unroll
-      for (int t = 0; t < NB; ++t)
-#pragma unroll
-        for (int q = 0; q < PARTS; ++q)
-          bv[t][q] = *reinterpret_cast<const float4*>(&sb[t][q][kk][tx * 4]);
+      for (int t = 0; t < NB; ++t) bv[t] = *reinterpret_cast<const float4*>(&sb[t][kk][tx * 4]);
 #pragma unroll
       for (int t = 0; t < NP; ++t) {
         const int ta = LANE ? data_of<BODY>(t) : t, tb = LANE ? t : data_of<BODY>(t);
-        const float ah[4] = {av[ta][0].x, av[ta][0].y, av[ta][0].z, av[ta][0].w};
-        const float bh[4] = {bv[tb][0].x, bv[tb][0].y, bv[tb][0].z, bv[tb][0].w};
+        const float ah[4] = {av[ta].x, av[ta].y, av[ta].z, av[ta].w};
+        const float bh[4] = {bv[tb].x, bv[tb].y, bv[tb].z, bv[tb].w};
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            // bf16x3 in two FMAs: b's first part is hi + lo (exact in
-            // float32), so a.hi * (b.hi + b.lo) is hi.hi + hi.lo, fused
-            // into the sum with one rounding; then + lo.hi
-            acc[t][r][c] = fmaf(ah[r], bh[c], acc[t][r][c]);
-            if constexpr (PARTS == 2) {
-              const float4 al4 = av[ta][PARTS - 1], bl4 = bv[tb][PARTS - 1];
-              const float al[4] = {al4.x, al4.y, al4.z, al4.w};
-              const float bhi[4] = {bl4.x, bl4.y, bl4.z, bl4.w};
-              acc[t][r][c] = fmaf(al[r], bhi[c], acc[t][r][c]);
-            }
-          }
+          for (int c = 0; c < 4; ++c) acc[t][r][c] = fmaf(ah[r], bh[c], acc[t][r][c]);
       }
     }
     __syncthreads();
@@ -318,14 +284,14 @@ __global__ void __launch_bounds__(NT) axis_dft_kernel(Args p) {
   }
 }
 
-template <int BODY, int TIER>
+template <int BODY>
 void launch_simt(bool lane, const Args& p, unsigned blocks, cudaStream_t st) {
-  if (lane) axis_dft_kernel<BODY, true, TIER><<<blocks, NT, 0, st>>>(p);
-  else      axis_dft_kernel<BODY, false, TIER><<<blocks, NT, 0, st>>>(p);
+  if (lane) axis_dft_kernel<BODY, true><<<blocks, NT, 0, st>>>(p);
+  else      axis_dft_kernel<BODY, false><<<blocks, NT, 0, st>>>(p);
 }
 
 // ---------------------------------------------------------------------------
-// 2. r2c and c2c at bf16x3 and bf16: tensor cores.
+// 2. bf16x3 and bf16: tensor cores.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -344,29 +310,30 @@ constexpr int AHEAD = STAGES - 2;   // stages in flight beyond the one consumed
 constexpr int LPITCH = 24;
 constexpr int SPITCH = CT + 4;
 
-// T terms (data operand x matrix, one accumulator set each), ND data inputs.
+// T terms (data operand x matrix), ND data inputs.
 template <int BODY> struct Terms;
 template <> struct Terms<R2C> { static constexpr int T = 1, ND = 1; };
 template <> struct Terms<C2C> { static constexpr int T = 3, ND = 2; };
+template <> struct Terms<C2R> { static constexpr int T = 2, ND = 2; };
 
-// Accumulators of one warpgroup: the three Gauss products (c2c), or NCH
-// 80-wide chunks of [cos | sin] (r2c).
-template <int BODY, int NCH> struct AccOf { using type = Acc; };
-template <int NCH> struct AccOf<R2C, NCH> {
-  struct type {
-    float k[NCH][ACC];
-    __device__ __forceinline__ void zero() {
+// NCH 80-wide output chunks of one warpgroup: r2c's [cos | sin], c2r's
+// outputs (both terms summed into the same chunk).
+template <int NCH> struct Chunks {
+  float k[NCH][ACC];
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-      for (int t = 0; t < NCH; ++t)
+    for (int t = 0; t < NCH; ++t)
 #pragma unroll
-        for (int i = 0; i < ACC; ++i) k[t][i] = 0.f;
-    }
-    __device__ __forceinline__ void fence() {
+      for (int i = 0; i < ACC; ++i) k[t][i] = 0.f;
+  }
+  __device__ __forceinline__ void fence() {
 #pragma unroll
-      for (int t = 0; t < NCH; ++t) fence_operands(k[t]);
-    }
-  };
+    for (int t = 0; t < NCH; ++t) fence_operands(k[t]);
+  }
 };
+// Accumulators of one warpgroup: the three Gauss products (c2c), else chunks.
+template <int BODY, int NCH> struct AccOf { using type = Chunks<NCH>; };
+template <int NCH> struct AccOf<C2C, NCH> { using type = Acc; };
 
 struct TcArgs {
   const float* in0; const float* in1;
@@ -384,10 +351,10 @@ struct TcSmem {
   static constexpr int B_STEP = NCH * B_TILE_BYTES;  // bytes between B term parts
   static constexpr int MAT = T * P * B_STEP;         // a stage of the matrix
   static constexpr int STG = ND * (LANE ? CT * LPITCH : TK * SPITCH) * 4;  // a stage of data
-  // r2c on the lane stages its output tile here for row-contiguous stores
-  // r2c on the lane stages its output tile here for row-contiguous stores
-  static constexpr bool STAGED_OUT = BODY == R2C && LANE;
-  static constexpr int OPITCH = NCH * TN + 8;
+  // the lane's output tile is staged here for row-contiguous stores: r2c's
+  // whole [cos | sin], c2r's one 80-column chunk at a time
+  static constexpr bool STAGED_OUT = BODY != C2C && LANE;
+  static constexpr int OPITCH = (BODY == R2C ? NCH * TN : TN) + 8;
   static constexpr int OUT = STAGED_OUT ? CT * OPITCH * 4 : 0;
   static constexpr int BARS = 128;  // the ring's mbarriers, one a slot
   static constexpr int BYTES = BARS + STAGES * (MAT + STG) + OUT;
@@ -538,9 +505,9 @@ __global__ void __launch_bounds__(NTC, 1) axis_tc_kernel(const __grid_constant__
   };
 
   // Stage s into this thread's A fragments: data points c = wg*64 + warp*16
-  // + g8 (+8), contraction 2*t4, 2*t4 + 1 (+8); the terms (c2c: re+im, im,
-  // re) formed in float32, then rounded or split (split8 packs the pairs in
-  // the fragment's register order).
+  // + g8 (+8), contraction 2*t4, 2*t4 + 1 (+8); the terms (r2c: x; c2c:
+  // re+im, im, re; c2r: re, im) formed in float32, then rounded or split
+  // (split8 packs the pairs in the fragment's register order).
   auto load_frag = [&](int s, const Pos& q, Frag<T, P>& f) {
     const int k0 = q.kk * TK;
     const float* sd = stg_ring + (s % STAGES) * (S::STG / 4);
@@ -570,15 +537,16 @@ __global__ void __launch_bounds__(NTC, 1) axis_tc_kernel(const __grid_constant__
         f.r[t][P - 1][2] = lo.z; f.r[t][P - 1][3] = lo.w;
       }
     };
-    if constexpr (BODY == R2C) {
-      put(0, v[0]);
-    } else {
+    if constexpr (BODY == C2C) {
       float sum[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) sum[e] = v[0][e] + v[1][e];
       put(0, sum);   // (re+im) . cos
       put(1, v[1]);  // im . (cos+sin)
       put(2, v[0]);  // re . (sin-cos)
+    } else {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) put(d, v[d]);  // r2c: x . [cos|sin]; c2r: re . cos, im . (-sin)
     }
   };
 
@@ -589,29 +557,43 @@ __global__ void __launch_bounds__(NTC, 1) axis_tc_kernel(const __grid_constant__
   auto epilogue = [&](const AccT& acc, const Pos& q) {
     const int n_out = p.n_out;
     if constexpr (S::STAGED_OUT) {
-      // the tile through shared memory; rows c of out0 / out1 are contiguous
+      // the tile through shared memory, so rows c of the outputs leave as
+      // contiguous runs: r2c's [cos | sin] at once (out0 and out1), c2r's
+      // chunks one after another (runs of 80 columns)
       if (p.groups == 1) {
+        const int rows = min(Q - q.c0, CT);
 #pragma unroll
-        for (int ch = 0; ch < NCH; ++ch)
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int base = BODY == R2C ? ch * TN : 0;
 #pragma unroll
           for (int i4 = 0; i4 < ACC / 4; ++i4)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int i = 4 * i4 + 2 * h;
               const int row = wg * TM + acc_row(i, warp, lane);
-              const int col = ch * TN + acc_col(i, lane);
-              *reinterpret_cast<float2*>(out_tile + row * S::OPITCH + col) =
+              *reinterpret_cast<float2*>(out_tile + row * S::OPITCH + base + acc_col(i, lane)) =
                   make_float2(acc.k[ch][i], acc.k[ch][i + 1]);
             }
-        __syncthreads();
-        const int rows = min(Q - q.c0, CT);
-        for (int o = 0; o < 2; ++o) {
-          float* dst = (o ? p.out1 : p.out0) + (size_t)q.c0 * n_out;
-          for (int c = tid / 32; c < rows; c += NTC / 32)
-            for (int r = lane; r < n_out; r += 32)
-              dst[(size_t)c * n_out + r] = out_tile[c * S::OPITCH + o * n_out + r];
+          if constexpr (BODY == C2R) {
+            __syncthreads();
+            const int width = min(n_out - ch * TN, TN);
+            float* dst = p.out0 + (size_t)q.c0 * n_out + ch * TN;
+            for (int c = tid / 32; c < rows; c += NTC / 32)
+              for (int r = lane; r < width; r += 32)
+                dst[(size_t)c * n_out + r] = out_tile[c * S::OPITCH + r];
+            __syncthreads();
+          }
         }
-        __syncthreads();
+        if constexpr (BODY == R2C) {
+          __syncthreads();
+          for (int o = 0; o < 2; ++o) {
+            float* dst = (o ? p.out1 : p.out0) + (size_t)q.c0 * n_out;
+            for (int c = tid / 32; c < rows; c += NTC / 32)
+              for (int r = lane; r < n_out; r += 32)
+                dst[(size_t)c * n_out + r] = out_tile[c * S::OPITCH + o * n_out + r];
+          }
+          __syncthreads();
+        }
         return;
       }
     }
@@ -630,7 +612,7 @@ __global__ void __launch_bounds__(NTC, 1) axis_tc_kernel(const __grid_constant__
         rs = len;
       }
 #pragma unroll
-      for (int ch = 0; ch < (BODY == R2C ? NCH : 1); ++ch)
+      for (int ch = 0; ch < (BODY == C2C ? 1 : NCH); ++ch)
 #pragma unroll
         for (int i4 = 0; i4 < ACC / 4; ++i4)
 #pragma unroll
@@ -643,9 +625,11 @@ __global__ void __launch_bounds__(NTC, 1) axis_tc_kernel(const __grid_constant__
                 p.out0[ob + r * rs] = y.x;
                 p.out1[ob + r * rs] = y.y;
               }
-            } else {
+            } else if constexpr (BODY == R2C) {
               if (r < n_out) p.out0[ob + r * rs] = acc.k[ch][i];
               else if (r < 2 * n_out) p.out1[ob + (r - n_out) * rs] = acc.k[ch][i];
+            } else {
+              if (r < n_out) p.out0[ob + r * rs] = acc.k[ch][i];
             }
           }
     }
@@ -670,17 +654,19 @@ __global__ void __launch_bounds__(NTC, 1) axis_tc_kernel(const __grid_constant__
     const uint64_t b0 = make_desc(mat_ring + (s % STAGES) * S::MAT);
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < (BODY == C2C ? 3 : NCH); ++t) {
-      // c2c: term t against its Gauss matrix; r2c: chunk t of [cos | sin]
-      const int tm = BODY == C2C ? t : 0;
-      float(&d)[ACC] = acc.k[t];
-      const uint64_t bh = desc_add(b0, BODY == C2C ? t * P * S::B_STEP : t * B_TILE_BYTES);
-      wgmma_m64n80k16_rs(d, f.r[tm][0], bh);
-      if constexpr (P == 2) {
-        wgmma_m64n80k16_rs(d, f.r[tm][0], desc_add(bh, S::B_STEP));
-        wgmma_m64n80k16_rs(d, f.r[tm][P - 1], bh);
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int ch = 0; ch < (BODY == C2C ? 1 : NCH); ++ch) {
+        // term t against chunk ch of its matrix, into c2c's Gauss product t,
+        // else into chunk ch (c2r sums both terms there)
+        float(&d)[ACC] = acc.k[BODY == C2C ? t : ch];
+        const uint64_t bh = desc_add(b0, t * P * S::B_STEP + ch * B_TILE_BYTES);
+        wgmma_m64n80k16_rs(d, f.r[t][0], bh);
+        if constexpr (P == 2) {
+          wgmma_m64n80k16_rs(d, f.r[t][0], desc_add(bh, S::B_STEP));
+          wgmma_m64n80k16_rs(d, f.r[t][P - 1], bh);
+        }
       }
-    }
     wgmma_commit();
     if (cq.kk == nk - 1) {
       wgmma_wait<0>();
@@ -741,13 +727,12 @@ cudaError_t launch_or(bool lane, const TcArgs& p, cudaStream_t st) {
 
 }  // namespace
 
-// The float32 tier of every body, and c2r at every tier. body: 0 r2c, 1 c2c,
-// 2 c2r. lane: 1 for the (len, n_in) view, 0 for the (batch, n_in, len) view
-// (batch must be 1 for lane). tier: 0 float32, 1 bf16, 2 bf16x3 (1 and 2
-// only for c2r: r2c and c2c take mvtb_axis_dft_tc). Inputs in0 (x or re)
-// and in1 (im, unused by r2c); matrices mat0..mat2 (n_in, n_out), mat2 used
-// by c2c only; outputs out0 and out1 (unused by c2r).
-extern "C" int mvtb_axis_dft(int body, int lane, int tier,
+// The float32 tier of every body. body: 0 r2c, 1 c2c, 2 c2r. lane: 1 for
+// the (len, n_in) view, 0 for the (batch, n_in, len) view (batch must be 1
+// for lane). Inputs in0 (x or re) and in1 (im, unused by r2c); matrices
+// mat0..mat2 (n_in, n_out), mat2 used by c2c only; outputs out0 and out1
+// (unused by c2r).
+extern "C" int mvtb_axis_dft(int body, int lane,
                              const float* in0, const float* in1,
                              const float* mat0, const float* mat1, const float* mat2,
                              float* out0, float* out1,
@@ -763,20 +748,18 @@ extern "C" int mvtb_axis_dft(int body, int lane, int tier,
   if (blocks > INT_MAX || (lane && batch != 1)) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned nb = (unsigned)blocks;
-  if (body == R2C && tier == F32) launch_simt<R2C, F32>(lane != 0, p, nb, st);
-  else if (body == C2C && tier == F32) launch_simt<C2C, F32>(lane != 0, p, nb, st);
-  else if (body == C2R && tier == F32) launch_simt<C2R, F32>(lane != 0, p, nb, st);
-  else if (body == C2R && tier == BF16) launch_simt<C2R, BF16>(lane != 0, p, nb, st);
-  else if (body == C2R && tier == BF16X3) launch_simt<C2R, BF16X3>(lane != 0, p, nb, st);
+  if (body == R2C) launch_simt<R2C>(lane != 0, p, nb, st);
+  else if (body == C2C) launch_simt<C2C>(lane != 0, p, nb, st);
+  else if (body == C2R) launch_simt<C2R>(lane != 0, p, nb, st);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// r2c and c2c at bf16 (parts 1) and bf16x3 (parts 2) on the tensor cores.
+// Every body at bf16 (parts 1) and bf16x3 (parts 2) on the tensor cores.
 // mats: the packed bf16 matrices of ops/pallas_dft.py:pack_mats for
-// (body, parts, nch); nch: 80-wide chunks a group (1, or 2 for r2c). cols:
-// the data points (lane: rows of the (cols, n_in) view; sublane: batch *
-// len of the (batch, n_in, len) view, len = 1 for lane).
+// (body, parts, nch); nch: 80-wide chunks a group (1, or 2 for r2c and
+// c2r). cols: the data points (lane: rows of the (cols, n_in) view;
+// sublane: batch * len of the (batch, n_in, len) view, len = 1 for lane).
 extern "C" int mvtb_axis_dft_tc(int body, int lane, int parts, int nch,
                                 const float* in0, const float* in1, const void* mats,
                                 float* out0, float* out1, long long cols,
@@ -812,6 +795,10 @@ extern "C" int mvtb_axis_dft_tc(int body, int lane, int parts, int nch,
     err = parts == 2 ? launch_or<R2C, 2, 1>(lane, p, st) : launch_or<R2C, 1, 1>(lane, p, st);
   } else if (body == R2C && nch == 2) {
     err = parts == 2 ? launch_or<R2C, 2, 2>(lane, p, st) : launch_or<R2C, 1, 2>(lane, p, st);
+  } else if (body == C2R && nch == 1) {
+    err = parts == 2 ? launch_or<C2R, 2, 1>(lane, p, st) : launch_or<C2R, 1, 1>(lane, p, st);
+  } else if (body == C2R && nch == 2) {
+    err = parts == 2 ? launch_or<C2R, 2, 2>(lane, p, st) : launch_or<C2R, 1, 2>(lane, p, st);
   }
   return (int)err;
 }

@@ -31,11 +31,10 @@ On a CUDA tensor a wrapper launches the kernel (or raises), adds one to
 ``launches[body]`` and to ``tier_launches[(body, route, precision)]``; on a
 CPU tensor it runs :func:`plain`, the same function in plain PyTorch
 (``torch.matmul`` over the same views, on the tier's bf16 parts as float32
-values, whose products are exact), and counts nothing. Routes: r2c and c2c
-at ``"high"`` and ``"default"`` run the tensor-core body (``"wgmma"``), whose
+values, whose products are exact), and counts nothing. Routes: every body at
+``"high"`` and ``"default"`` runs the tensor-core body (``"wgmma"``), whose
 matrices the host lays out once per matrix set (:func:`pack_mats`); the
-``"highest"`` tier and every tier of c2r run the float32 CUDA-core body
-(``"simt"``).
+``"highest"`` tier runs the float32 CUDA-core body (``"simt"``).
 """
 
 from __future__ import annotations
@@ -52,8 +51,6 @@ BODIES = {"r2c": 0, "c2c": 1, "c2r": 2}
 # (data inputs, matrices, outputs) of each body
 ARITY = {"r2c": (1, 2, 2), "c2c": (2, 3, 2), "c2r": (2, 2, 1)}
 TIERS = ("highest", "high", "default")
-# the kernels' tier codes: float32, bf16, bf16x3
-_TIER_CODE = {"highest": 0, "default": 1, "high": 2}
 # bf16 parts of a tensor-core operand
 _PARTS = {"default": 1, "high": 2}
 # Kernel launches per body, and per (body, route, precision), counted by the
@@ -74,7 +71,7 @@ def _lib():
 
         lib = _build.load("axis_dft")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mvtb_axis_dft.argtypes = [i, i, i] + [p] * 7 + [ll] * 4 + [p]
+        lib.mvtb_axis_dft.argtypes = [i, i] + [p] * 7 + [ll] * 4 + [p]
         lib.mvtb_axis_dft.restype = i
         lib.mvtb_axis_dft_tc.argtypes = [i, i, i, i] + [p] * 5 + [ll] * 4 + [p]
         lib.mvtb_axis_dft_tc.restype = i
@@ -92,10 +89,10 @@ def check_tier(precision: str) -> str:
 
 
 def route(body: str, precision: str) -> str:
-    """The kernel body that serves ``body`` at ``precision`` on the card."""
-    if check_tier(precision) == "highest" or body == "c2r":
-        return "simt"
-    return "wgmma"
+    """The kernel body that serves ``body`` at ``precision`` on the card:
+    the tensor cores at ``"high"`` and ``"default"``, CUDA cores at
+    ``"highest"``, for every body."""
+    return "simt" if check_tier(precision) == "highest" else "wgmma"
 
 
 # --------------------------------------------------------------------------
@@ -149,11 +146,15 @@ def mat_layout(body: str, n_out: int) -> Tuple[int, int, int]:
     """(terms, chunks, rows) of the tensor-core body's matrix operand:
     c2c contracts three Gauss matrices, each in chunks of 80 output
     columns; r2c one matrix ``[cos | sin]`` of ``2 n_out`` columns, two
-    chunks at a time where it is wider than one."""
+    chunks at a time where it is wider than one; c2r two, ``cos`` (against
+    ``re``) and ``-sin`` (against ``im``), of ``n_out`` columns summed into
+    the same chunks, two at a time where ``n_out`` is wider than one."""
     if body == "c2c":
         return 3, 1, n_out
     if body == "r2c":
         return 1, (1 if 2 * n_out <= _CHUNK else 2), 2 * n_out
+    if body == "c2r":
+        return 2, (1 if n_out <= _CHUNK else 2), n_out
     raise ValueError(f"no tensor-core body for {body!r}")
 
 
@@ -161,8 +162,9 @@ def pack_mats(body: str, mats: Sequence[torch.Tensor], precision: str
               ) -> torch.Tensor:
     """The tensor-core body's matrices, pre-lowered for the tier and laid
     out as its wgmma descriptors read them, packed flat in bf16 on the
-    matrices' device. Each term's (n_in, n_out) matrix (r2c: ``[cos|sin]``)
-    is transposed to (rows, n_in), split into its tier's bf16 parts and
+    matrices' device. Each term's (n_in, n_out) matrix (r2c: ``[cos|sin]``;
+    c2r: ``cos`` and ``-sin``, the sign exact in both bf16 splits) is
+    transposed to (rows, n_in), split into its tier's bf16 parts and
     zero-padded to (Rp, Kp): Rp a multiple of the group of ``80 * chunks``
     output columns, Kp of 16. Order: [group][16-deep step][term][part], each
     a K-major grid of 8 x 8 core matrices ([group rows / 8][2][8][8]), so
@@ -177,7 +179,12 @@ def pack_mats(body: str, mats: Sequence[torch.Tensor], precision: str
     Kp = -(-n_in // _DEPTH) * _DEPTH
     full = torch.zeros((terms, parts, Rp, Kp), dtype=torch.bfloat16,
                        device=mats[0].device)
-    cols = [torch.cat(tuple(mats), 1)] if body == "r2c" else list(mats)
+    if body == "r2c":
+        cols = [torch.cat(tuple(mats), 1)]
+    elif body == "c2r":
+        cols = [mats[0], -mats[1]]
+    else:
+        cols = list(mats)
     for t, m in enumerate(cols):
         for p, part in enumerate(_dft.tier_parts(m, parts == 1)):
             full[t, p, :rows, :n_in] = part.T
@@ -260,9 +267,8 @@ def _call(body: str, lane: bool, ins, mats, precision: str):
                                        stream)
         else:
             mptr = [m.data_ptr() for m in mats] + [None] * (3 - n_mats)
-            err = lib.mvtb_axis_dft(BODIES[body], int(lane), _TIER_CODE[precision],
-                                    *ptr, *mptr, *optr, batch, n_in, n_out,
-                                    length, stream)
+            err = lib.mvtb_axis_dft(BODIES[body], int(lane), *ptr, *mptr, *optr,
+                                    batch, n_in, n_out, length, stream)
     if err != 0:
         msg = lib.mvtb_axis_dft_error_string(err).decode()
         raise RuntimeError(f"axis_dft {body} kernel launch failed: {msg} ({err})")

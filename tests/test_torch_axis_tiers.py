@@ -21,10 +21,13 @@ from mvtb_tpu_torch.ops import pallas_dft as tpdft
 
 CPU = torch.device("cpu")
 # (label, body, matrix kind, inverse): the lane and sublane matrix sets of
-# the two tensor-core bodies (r2c lane: the half matrix of rdft_nd; c2c: the
-# Gauss matrices; r2c sublane: the full matrix of dft_nd on a real input)
+# the tensor-core bodies (r2c lane: the half matrix of rdft_nd; c2c: the
+# Gauss matrices; r2c sublane: the full matrix of dft_nd on a real input;
+# c2r lane: the completion matrix of irdft_nd_real; c2r sublane: the full
+# inverse matrix of idft_nd_real)
 KINDS = [("r2c lane", "r2c", "half", False), ("c2c lane", "c2c", "gauss", True),
-         ("c2c sublane", "c2c", "gauss", False), ("r2c sublane", "r2c", "full", False)]
+         ("c2c sublane", "c2c", "gauss", False), ("r2c sublane", "r2c", "full", False),
+         ("c2r lane", "c2r", "half_inv", True), ("c2r sublane", "c2r", "full", True)]
 
 
 def _int_bits(t: torch.Tensor) -> np.ndarray:
@@ -62,7 +65,12 @@ def test_packed_layout_is_the_split_matrices(n, kind, tier):
     flat = tpdft.pack_mats(body, mats, tier)
     assert flat.dtype == torch.bfloat16 and flat.device == CPU
     got, rows, Rp, Kp = _unpack(flat, body, n_in, n_out, parts)
-    terms = [torch.cat(mats, 1)] if body == "r2c" else list(mats)
+    if body == "r2c":
+        terms = [torch.cat(mats, 1)]
+    elif body == "c2r":  # re . cos + im . (-sin): the sign on the host
+        terms = [mats[0], -mats[1]]
+    else:
+        terms = list(mats)
     for t, m in enumerate(terms):
         want = (m.to(torch.bfloat16),) if parts == 1 else tdft.split_bf16(m)
         for p in range(parts):
@@ -72,12 +80,15 @@ def test_packed_layout_is_the_split_matrices(n, kind, tier):
 
 
 def test_mat_layout_fits_the_path_widths():
-    # r2c's [cos | sin] at the train (D = 64) and bench (D = 155) widths
+    # r2c's [cos | sin] and c2r's n_out columns at the train (D = 64) and
+    # bench (D = 155) widths
     assert tpdft.mat_layout("r2c", 33) == (1, 1, 66)
     assert tpdft.mat_layout("r2c", 78) == (1, 2, 156)
     assert tpdft.mat_layout("c2c", 240) == (3, 1, 240)
+    assert tpdft.mat_layout("c2r", 64) == (2, 1, 64)
+    assert tpdft.mat_layout("c2r", 155) == (2, 2, 155)
     with pytest.raises(ValueError, match="tensor-core"):
-        tpdft.mat_layout("c2r", 33)
+        tpdft.mat_layout("c2x", 33)
 
 
 def test_split_is_shared_and_bit_equal_to_jax():
@@ -115,10 +126,9 @@ def test_unknown_tier_raises(bad):
 
 
 def test_routes():
-    for body in ("r2c", "c2c"):
+    for body in ("r2c", "c2c", "c2r"):
         assert tpdft.route(body, "high") == tpdft.route(body, "default") == "wgmma"
         assert tpdft.route(body, "highest") == "simt"
-    assert {tpdft.route("c2r", t) for t in tpdft.TIERS} == {"simt"}
     with pytest.raises(ValueError, match="float32"):
         tpdft.pack_mats("c2c", tdft.device_mats("gauss", 8, False, CPU), "highest")
 

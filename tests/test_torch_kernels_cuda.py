@@ -14,7 +14,7 @@ some elements, a step of 2^-17 of that element; the kernel's error against
 a complex128 ``torch.fft`` version is also held to at most 3x the plain
 version's), 1e-5 for the axis kernels' ``highest`` tier (float32 on both
 sides, another summation order), 5e-5 for their ``high`` tier (bf16x3 on
-both sides, the plane bound and reason; r2c and c2c on the tensor cores,
+both sides, the plane bound and reason; every body on the tensor cores,
 also held to 3x the plain version's error against complex128), and 2e-2 for
 ``plane_fast`` and ``default`` (bf16 operands on both sides; an
 intermediate may round to the neighbouring bf16 value). The plane shapes
@@ -172,35 +172,47 @@ def test_axis_kernel_matches_plain(body, lane, precision, cuda_device):
             assert rel_err(a, b) <= AXIS_TOL[precision], (body, lane, view)
 
 
-def _exact(body, lane, ins, inverse):
+def _exact(body, lane, ins, inverse, n):
     """complex128 torch.fft of an r2c (half matrix on the lane, full on the
-    sublane) or c2c call, as (re, im)."""
+    sublane) or c2c call, as (re, im); of a c2r call as (out,): ``irfft`` to
+    n points on the lane (half matrix), the real part of ``ifft`` on the
+    sublane (full matrix)."""
     dim = -1 if lane else 1
     if body == "r2c":
         x = ins[0].double()
         k = torch.fft.rfft(x, dim=dim) if lane else torch.fft.fft(x, dim=dim)
-    else:
-        z = torch.complex(ins[0].double(), ins[1].double())
-        k = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
+        return k.real, k.imag
+    z = torch.complex(ins[0].double(), ins[1].double())
+    if body == "c2r":
+        return (torch.fft.irfft(z, n=n, dim=dim) if lane else torch.fft.ifft(z, dim=dim).real,)
+    k = (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
     return k.real, k.imag
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lane", [True, False], ids=["lane", "sublane"])
-@pytest.mark.parametrize("body", ["r2c", "c2c"])
+@pytest.mark.parametrize("body", ["r2c", "c2c", "c2r"])
 def test_tensor_core_body_is_as_accurate_as_plain(body, lane, cuda_device):
     """At ``high`` the tensor-core kernel's error against complex128 is at
     most EXACT_RATIO times the plain version's, at the train and bench
-    views' extents."""
+    views' extents (c2r on the lane: the half bins of D = 64 and 155)."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     call = pallas_dft.lane_call if lane else pallas_dft.sub_call
-    for view in ([(4096, 64), (2048, 155)] if lane else [(8, 128, 4224), (64, 240, 78)]):
+    if body == "c2r" and lane:
+        views = [((4096, 33), 64), ((2048, 78), 155)]
+    elif lane:
+        views = [((4096, 64), 64), ((2048, 155), 155)]
+    else:
+        views = [((8, 128, 4224), 128), ((64, 240, 78), 240)]
+    for view, n in views:
         ins, mats = _axis_case(body, lane, view, g, cuda_device)
         if body == "c2c":
-            mats = dft.device_mats("gauss", view[-1] if lane else view[1], True, cuda_device)
+            mats = dft.device_mats("gauss", n, True, cuda_device)
+        elif body == "c2r" and lane:
+            mats = dft.device_mats("half_inv", n, True, cuda_device)
         got = call(body, ins, mats, "high")
         ref = pallas_dft.plain(body, lane, ins, mats, "high")
-        exact = _exact(body, lane, ins, inverse=body == "c2c")
+        exact = _exact(body, lane, ins, body != "r2c", n)
         torch.cuda.synchronize()
         assert complex_rel_err(got, exact) <= EXACT_RATIO * complex_rel_err(ref, exact), view
 

@@ -197,6 +197,37 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     assert mvtb_tpu_torch.__version__
 
 
+def test_chip_smoke_names_each_kernel_in_its_ptxas_lines():
+    # ptxas prints a kernel's registers after its entry line, and its
+    # register warnings before it, naming the entry inside the warning
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    tc = "_ZN44_GLOBAL__N__e4_11_axis_dft_cu_51ee5cc52tc14axis_tc_kernelILi2ELb1ELi2ELi2EEEvNS0_6TcArgsE"
+    log = (f"ptxas warning : (C7517) warpgroup.wait is injected in around line 9 by compiler "
+           f"to allow use of registers defined by GMMA in function '{tc}'\n"
+           f"ptxas info    : Compiling entry function '{tc}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {tc}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 228 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function "
+           "'_ZN44_GLOBAL__N__e4_11_axis_dft_cu_51ee5cc515axis_dft_kernelILi2ELb0EEEvNS_4ArgsE'"
+           " for 'sm_90a'\n"
+           "ptxas info    : Used 77 registers, used 1 barriers, 17408 bytes smem\n"
+           "ptxas info    : Compiling entry function 'sap_kernel' for 'sm_90a'\n"
+           "ptxas info    : Used 30 registers\n")
+    assert chip_smoke.ptxas_lines("axis_dft", log) == [
+        "ptxas axis_dft axis_tc_kernel<2,1,2,2>: (C7517) warpgroup.wait is injected in around "
+        "line 9 by compiler to allow use of registers defined by GMMA",
+        "ptxas axis_dft axis_tc_kernel<2,1,2,2>: 0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads",
+        "ptxas axis_dft axis_tc_kernel<2,1,2,2>: Used 228 registers, used 1 barriers",
+        "ptxas axis_dft axis_dft_kernel<2,0>: Used 77 registers, used 1 barriers, 17408 bytes smem",
+        "ptxas axis_dft sap_kernel: Used 30 registers"]
+
+
 def test_plane_profile_fails_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, str(ROOT / "plane_profile.py")], cwd=ROOT,
