@@ -50,7 +50,27 @@ order, each fatal on failure:
    ``high`` on the tensor-core body, never call a plain
    version on a CUDA tensor, give a finite loss at every step and change
    the parameters;
-6. pointwise kernel phase: the salt & pepper and polar kernels against
+6. runner phase (the experiment runner's segmentation family, the
+   registry's ``gibbs12p5`` at full width: UNet 16..256 in bf16,
+   4x128x128x64 textured volumes; cut in depth to 4 epochs of 8 steps over
+   a pool of 8, 2 held-out batches, 1 for the fast profile): the plane
+   kernel against its plain version at the fast profile's training shape
+   (64, 128, 128, 64) within 2e-2; ``run(chunked=True)`` on the default
+   profile (``dft``, batch 2: no hand-written kernel, finite losses and
+   Dice, the checkpoints of epochs 2 and 4 kept) and with ``fast=True``
+   (``plane_fast``, batch 16: one plane-kernel launch per train step and
+   per held-out batch, none of another kernel, no plain version on the
+   card); a run killed after 2 epochs and resumed to 4 against an
+   uninterrupted one, both with deterministic cuDNN (equal prefix, the
+   tail's difference reported and held under the JAX package's 0.15); the
+   CLI in a subprocess (one summary JSON line); over one chunk of each
+   profile, the host reads that ``torch.cuda.set_sync_debug_mode`` reports
+   (its control, the loss read after the chunk, must be reported), the
+   host's issue time against the wall time, and from a ``torch.profiler``
+   trace the device's busy time, idle share and top kernels; pool
+   seconds, train vol/s (chunks alone and with validation), ms per step,
+   validation, checkpoint save and restore ms;
+7. pointwise kernel phase: the salt & pepper and polar kernels against
    their plain versions at a 4x240x240x155 volume, (3, 7, 13, 11) and 1001
    elements (also through an offset, unaligned view): sap bit-equal at
    p = 0, 0.05 and 0.4, polar within 1e-6 elementwise relative on spectra
@@ -58,7 +78,7 @@ order, each fatal on failure:
    pepper and salt shares within 6 sigma, the levels exactly min/2 and
    max/2, the seed dependence, and at p = 0 the changed count equal to the
    count of u == 0;
-7. corruption phase (the per-volume corruption path): the dict pipeline
+8. corruption phase (the per-volume corruption path): the dict pipeline
    (disk r=12.5, Gibbs, spikes, wrap 0.5, plane wave on the (55, 55, 30)
    shell, S&P 0.05) on the card against the CPU at 4x32x32x16 (within 1e-4
    of the max), then at 4x240x240x155 on the card, followed by
@@ -66,7 +86,7 @@ order, each fatal on failure:
    ``benchmarks.py:config6`` magnitude-edit tail on its spectrum in three
    strategies (within 1e-5 of the max of each other); one launch of each
    pointwise kernel, none of another kernel, no plain version on the card;
-8. timing with CUDA events: the plane kernel, its plain version and
+9. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -87,6 +107,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -94,6 +115,8 @@ import sys
 import time
 
 import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense: HBM bytes/s, float32 CUDA-core and bf16
 # tensor-core FLOP/s.
@@ -172,6 +195,12 @@ LAUNCHES_PER_STEP = {"r2c": 1, "c2c": 4, "c2r": 1}
 AXIS_REPLACES = {"r2c": "mvtb_tpu/ops/pallas_dft.py:116",
                  "c2c": "mvtb_tpu/ops/pallas_dft.py:101",
                  "c2r": "mvtb_tpu/ops/pallas_dft.py:127"}
+# the runner phase: the registry's T1 training template at full width, cut
+# in depth only (epochs, steps, pool, held-out batches; the fast profile's
+# held-out batches hold 16 volumes)
+RUNNER_NAME = "gibbs12p5"
+RUNNER_EPOCHS, RUNNER_STEPS, RUNNER_POOL = 4, 8, 8
+RUNNER_VAL_BATCHES = {"default": 2, "fast": 1}
 # the pointwise kernels: one BraTS volume (4 modalities x 240x240x155, also
 # the magnitude-edit tail's k-space), an odd shape, and a count that is not a
 # multiple of 4 (also checked through an offset view, not 16-byte aligned)
@@ -819,6 +848,250 @@ def train_phase(dev) -> dict:
             "optimizer_step_ms": opt_ms, "peak_memory_gb": peak_gb}
 
 
+def _zero_launch_counts():
+    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels
+
+    fused_plane.plane_stylize_half.launches = 0
+    for counts in (pallas_dft.launches, pallas_kernels.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launch_counts() -> dict:
+    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels
+
+    return {"fused_plane": fused_plane.plane_stylize_half.launches,
+            **{f"axis_dft_{k}": v for k, v in pallas_dft.launches.items()},
+            **pallas_kernels.launches}
+
+
+def _runner_rates(res: dict, batch: int, steps: int) -> dict:
+    """Train vol/s of one chunked run from its host timing (each chunk
+    ends in the loss's host read): over all chunks, over the chunks after
+    the first (which pays first-use costs), and over all chunks and
+    validations."""
+    t = res["timing"]
+    chunk, val = t["chunk_s"], t["val_s"]
+    return {"pool_s": t["pool_s"], "chunk_ms": [c * 1e3 for c in chunk],
+            "val_ms": [v * 1e3 for v in val], "save_ms": [v * 1e3 for v in t["save_s"]],
+            "restore_ms": None if t["restore_s"] is None else t["restore_s"] * 1e3,
+            "ms_per_step_after_first": statistics.median(chunk[1:]) / steps * 1e3,
+            "vol_s_chunks": batch * steps * len(chunk) / sum(chunk),
+            "vol_s_chunks_after_first": batch * steps * (len(chunk) - 1) / sum(chunk[1:]),
+            "vol_s_with_val": batch * steps * len(chunk) / (sum(chunk) + sum(val))}
+
+
+def runner_phase(dev) -> dict:
+    """The experiment runner's segmentation family at the registry's full
+    width (UNet 16..256, 2 residual units, bf16; 128x128x64 textured
+    volumes), cut in depth only: RUNNER_EPOCHS epochs of RUNNER_STEPS steps
+    over a pool of RUNNER_POOL volumes.
+
+    (a) ``run(gibbs12p5, chunked=True)`` on the default profile (``auto``
+    -> ``dft``, batch 2): finite losses and Dice, no hand-written kernel,
+    the newest checkpoints kept; (b) the same with ``fast=True``
+    (``plane_fast``, batch 16): the plane kernel launched once per train
+    step and per validation batch, never its plain version on the card,
+    and the kernel held to its plain version at the training shape;
+    (c) a run killed after 2 epochs and resumed to 4, against an
+    uninterrupted run, both with deterministic cuDNN: equal prefix, the
+    tail difference reported; (d) the CLI in a subprocess prints one
+    summary line; (e) the host reads that ``set_sync_debug_mode`` reports
+    over one chunk of each profile."""
+    import tempfile
+    import warnings
+
+    from mvtb_tpu_torch.experiments import registry, runner
+    from mvtb_tpu_torch.ops import fused, fused_plane
+    from mvtb_tpu_torch.train import CheckpointManager, make_chunk_fn
+
+    base = registry.get(RUNNER_NAME)
+    fast = registry.fast_science(base)
+    res = {"config": RUNNER_NAME, "shape": [base.in_channels, *base.spatial],
+           "epochs": RUNNER_EPOCHS, "steps_per_epoch": RUNNER_STEPS, "pool": RUNNER_POOL,
+           "val_batches": RUNNER_VAL_BATCHES}
+
+    # the plane kernel at the fast profile's training shape, before the path
+    B, C = fast.batch_size, fast.in_channels
+    shape = (B * C,) + base.spatial
+    args = plane_case(fast.train_stylize, shape, dev, seed=50)
+    got = fused_plane.plane_stylize_half(*args, fast=True)
+    ref = fused_plane.plane_stylize_half_plain(*args, fast=True)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, b) for a, b in zip(got, ref))
+    check(all(bool(torch.isfinite(a).all()) for a in got), "non-finite plane kernel output")
+    check(err <= TOL["plane_fast"],
+          f"plane_fast kernel vs plain at {shape}: {err:.3e} > {TOL['plane_fast']}")
+    flops, nbytes, bound_ms, bound_by = plane_bound(shape, "plane_fast")
+    kc = torch.complex(args[0], args[1])
+    res["plane_fast_kernel"] = {
+        "shape": list(shape), "max_rel_err": err,
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+        "ms": cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=True), 10),
+        "plain_ms": cuda_ms(lambda: fused_plane.plane_stylize_half_plain(*args, fast=True), 5),
+        "library_ms_fft2_ifft2_transform_only": cuda_ms(
+            lambda: torch.fft.ifft2(torch.fft.fft2(kc)), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    del got, ref, args, kc
+
+    plain = fused_plane.plane_stylize_half_plain
+    plain_on_card = []
+
+    def watched_plain(k_re, *a, **kw):
+        if k_re.is_cuda:
+            plain_on_card.append(tuple(k_re.shape))
+        return plain(k_re, *a, **kw)
+
+    def drive(tmp, tag, **kw):
+        """One run on the path, its launches counted from zero."""
+        _zero_launch_counts()
+        out = runner.run(RUNNER_NAME, chunked=True, epochs=kw.pop("epochs", RUNNER_EPOCHS),
+                         steps_per_epoch=RUNNER_STEPS, pool=RUNNER_POOL,
+                         workdir=f"{tmp}/{tag}", verbose=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        out["launches"] = _launch_counts()
+        h = out["history"]
+        check(all(math.isfinite(v) for v in h["loss"]), f"{tag}: losses {h['loss']}")
+        check(all(math.isfinite(v) for d in h["dice"] for v in [d["mean"], *d["per_class"]]),
+              f"{tag}: Dice {h['dice']}")
+        return out
+
+    fused_plane.plane_stylize_half_plain = watched_plain
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # (a) the default profile
+            a = drive(tmp, "default", val_batches=RUNNER_VAL_BATCHES["default"])
+            check(not any(a["launches"].values()),
+                  f"the default profile launched a hand-written kernel: {a['launches']}")
+            check(a["history"]["epochs"] == list(range(2, RUNNER_EPOCHS + 1, 2)),
+                  f"validation epochs {a['history']['epochs']}")
+            kept = CheckpointManager(f"{tmp}/default/ckpt").all_steps()
+            check(kept == a["history"]["epochs"], f"checkpoints kept {kept}")
+            res["default"] = {"losses": a["history"]["loss"], "dice": a["history"]["dice"],
+                              "launches": a["launches"], "checkpoints": kept,
+                              **_runner_rates(a, base.batch_size, RUNNER_STEPS)}
+
+            # (b) the fast profile: the plane kernel on every stylize
+            b = drive(tmp, "fast", fast=True, val_batches=RUNNER_VAL_BATCHES["fast"])
+            want = (RUNNER_EPOCHS * RUNNER_STEPS
+                    + len(b["history"]["epochs"]) * RUNNER_VAL_BATCHES["fast"])
+            check(b["launches"]["fused_plane"] == want,
+                  f"fast profile: {b['launches']} launches, expected {want} of the plane kernel")
+            check(sum(b["launches"].values()) == want, f"other kernels launched: {b['launches']}")
+            res["fast"] = {"losses": b["history"]["loss"], "dice": b["history"]["dice"],
+                           "launches": b["launches"],
+                           **_runner_rates(b, fast.batch_size, RUNNER_STEPS)}
+        finally:
+            fused_plane.plane_stylize_half_plain = plain
+        check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
+
+        # (c) kill after 2 epochs and resume to RUNNER_EPOCHS, deterministic cuDNN
+        torch.backends.cudnn.deterministic = True
+        try:
+            val = RUNNER_VAL_BATCHES["default"]
+            full = drive(tmp, "uninterrupted", val_batches=val)
+            part = drive(tmp, "resumed", val_batches=val, epochs=2)
+            resumed = drive(tmp, "resumed", val_batches=val, resume=True)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        h_full, h_res = full["history"], resumed["history"]
+        check(resumed["resumed_from"] == 2, f"resumed from {resumed['resumed_from']}")
+        check(h_res["loss"][:2] == part["history"]["loss"], "the resumed prefix changed")
+        check(h_res["epochs"] == h_full["epochs"], f"epochs {h_res['epochs']}")
+        tail = max(abs(x - y) for x, y in zip(h_res["loss"][2:], h_full["loss"][2:]))
+        dice_tail = max(abs(x - y) for d, e in zip(h_res["dice"], h_full["dice"])
+                        for x, y in zip(d["per_class"], e["per_class"]))
+        param_tail = max(float((p - q).detach().abs().max()) for p, q in zip(
+            full["state"].model.parameters(), resumed["state"].model.parameters()))
+        # the JAX package's bound on its own resumed tail; the port's is
+        # expected to be exact (reported)
+        check(tail < 0.15, f"resumed tail loss differs by {tail}")
+        res["resume"] = {"prefix_equal": True,
+                         "prefix_vs_uninterrupted": max(abs(x - y) for x, y in zip(
+                             h_res["loss"][:2], h_full["loss"][:2])),
+                         "tail_loss_max_abs_diff": tail, "tail_dice_max_abs_diff": dice_tail,
+                         "param_max_abs_diff": param_tail,
+                         "restore_ms": resumed["timing"]["restore_s"] * 1e3,
+                         "save_ms": [v * 1e3 for v in full["timing"]["save_s"]]}
+        del full, part, resumed
+
+        # (d) the CLI, as a user runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mvtb_tpu_torch.experiments", "run", RUNNER_NAME,
+             "--chunked", "--epochs", "2", "--steps", "4", "--pool", str(RUNNER_POOL),
+             "--val-batches", str(RUNNER_VAL_BATCHES["default"]), "--quiet",
+             "--workdir", f"{tmp}/cli"],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        check(len(lines) == 1, f"CLI printed {lines}")
+        summary = json.loads(lines[0])
+        check(set(summary) == {"best_dice", "wall_time_s"} and math.isfinite(summary["best_dice"]),
+              f"CLI summary {summary}")
+        res["cli"] = {"summary": summary, "seconds": time.perf_counter() - t0}
+
+    # (e) over one chunk of each profile, outside the counted runs: the host
+    # reads set_sync_debug_mode reports (a read of the loss after it is the
+    # detector's control), the host's time to issue the chunk against its
+    # wall time, and the device's busy time from a profiler trace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reads = {}
+    for tag, cfg in (("default", base), ("fast", fast)):
+        state = runner._seg_state(cfg, 0, dev)
+        pool_i, pool_l = runner._pool_arrays(cfg, 0, RUNNER_POOL, dev)
+        idxs = torch.randint(0, RUNNER_POOL, (RUNNER_STEPS, cfg.batch_size), device=dev)
+        chunk_fn = make_chunk_fn(cfg.train_stylize, dev)
+
+        def one_chunk(epoch):
+            return chunk_fn(state, runner.epoch_generator(0, epoch, dev), pool_i, pool_l,
+                            idxs)[2]
+
+        one_chunk(0)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                loss = one_chunk(1)
+                n_chunk = len(caught)
+                float(loss)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message)]
+        check(len(syncs) > len([w for w in caught[:n_chunk] if "synchroniz" in str(w.message)]),
+              f"{tag}: set_sync_debug_mode did not report the loss read: {syncs}")
+        t0 = time.perf_counter()
+        loss = one_chunk(2)
+        issue_s = time.perf_counter() - t0
+        float(loss)
+        wall_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            float(one_chunk(3))
+        # device work only: a user annotation's range (the optimizer step's
+        # record_function) also lands on the device and would count twice
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        reads[tag] = {
+            "host_reads_per_chunk": len([w for w in caught[:n_chunk]
+                                         if "synchroniz" in str(w.message)]),
+            "steps": RUNNER_STEPS, "kinds": sorted(set(syncs))[:5],
+            "chunk_issue_ms": issue_s * 1e3, "chunk_wall_ms": wall_s * 1e3,
+            "device_busy_ms": busy_ms or None,
+            "device_idle_share": (1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                               for e in top]}
+        del state, pool_i, pool_l
+    res["sync_debug"] = reads
+    torch.cuda.empty_cache()
+    return res
+
+
 def elementwise_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b| / |b| over the elements that differ."""
     d = (a - b).abs()
@@ -1075,15 +1348,19 @@ def pointwise_timing(dev) -> dict:
     return res
 
 
-def kernels_line(sl, tr, tm, ax, cp, pt) -> list:
+def kernels_line(sl, tr, rn, tm, ax, cp, pt) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
-    path, each axis kernel from the train path."""
+    path and the runner's fast profile (timed at the eval slice), each axis
+    kernel from the train path."""
     main_t = tm["plane slice"]
+    by_path = {"eval_slice": sl["launches"],
+               "runner_fast": rn["fast"]["launches"]["fused_plane"]}
     kernels = [{
         "name": "fused_plane", "route": "cuda",
         "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
         "replaces": "mvtb_tpu/ops/fused_plane.py:218",
-        "launches": sl["launches"], "max_abs_err": main_t["max_abs_err"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": main_t["max_abs_err"],
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms_fft2_ifft2_transform_only"]}]
@@ -1161,6 +1438,11 @@ def main() -> int:
     out({"train_phase": tr})
 
     t0 = time.perf_counter()
+    rn = runner_phase(dev)
+    rn["seconds"] = time.perf_counter() - t0
+    out({"runner_phase": rn, "card": smi})
+
+    t0 = time.perf_counter()
     pw = pointwise_kernel_phase(dev)
     out({"pointwise_kernel_phase": pw, "polar_tolerance": POLAR_TOL,
          "seconds": time.perf_counter() - t0})
@@ -1179,7 +1461,7 @@ def main() -> int:
     pt = pointwise_timing(dev)
     out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, tm, ax, cp, pt)
+    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,92 @@
+"""Chunked training over a device-resident pool (counterpart of
+mvtb_tpu/train/chunked.py): K steps per call with one host read.
+
+The JAX package runs a chunk as one jitted ``fori_loop``. Here a chunk is a
+host loop of K :func:`~mvtb_tpu_torch.train.seg.seg_train_step` calls whose
+batches are taken on the device (``index_select`` of pool rows), whose
+losses are summed on the device, and whose mean comes back as a device
+scalar: the caller reads it once a chunk, and nothing in the loop waits
+for the card. Capturing the chunk in a CUDA graph is ROADMAP.md section 2's
+host-dispatch item.
+
+The learnable-stylization and GAN chunk functions come with their models
+(ROADMAP.md section 1, items 6 and 7).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mvtb_tpu_torch._device import DeviceLike, resolve_device
+from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig
+from mvtb_tpu_torch.train.seg import SegState, seg_train_step
+
+
+def make_chunk_fn(stylize: Optional[StylizeConfig],
+                  device: DeviceLike = None) -> Callable:
+    """Build the K-steps-per-call training function.
+
+    Returns ``chunk_fn(state, generator, pool_images, pool_labels, idxs,
+    draws=None) -> (state, generator, mean_loss)``. ``idxs`` is a (K, B)
+    integer tensor of pool rows per step, on the pools' device; the state
+    is updated in place and returned, as is ``generator``, from which each
+    step's stylization draws follow one another. ``draws``, a list of K
+    :class:`~mvtb_tpu_torch.ops.fused.StageDraws`, fixes every step's
+    draws instead. ``mean_loss`` is the float32 mean of the K losses, a
+    device scalar (the reference logs the per-epoch mean loss).
+    ``device=None`` means ``"cuda"``; the state and pools live there.
+    """
+    dev = resolve_device(device)
+
+    def chunk_fn(state: SegState, generator: Optional[torch.Generator],
+                 pool_i: torch.Tensor, pool_l: torch.Tensor, idxs: torch.Tensor,
+                 draws: Optional[Sequence[StageDraws]] = None):
+        n = idxs.shape[0]
+        if draws is not None and len(draws) != n:
+            raise ValueError(f"{len(draws)} draws for a chunk of {n} steps")
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(n):
+            img = pool_i.index_select(0, idxs[i])
+            lbl = pool_l.index_select(0, idxs[i])
+            loss = seg_train_step(state, img, lbl, stylize,
+                                  draws=None if draws is None else draws[i],
+                                  generator=generator, device=dev)
+            total += loss.float()
+        return state, generator, total / n
+
+    return chunk_fn
+
+
+def train_chunked(state: SegState, pool_images: torch.Tensor,
+                  pool_labels: torch.Tensor, *, steps: int, batch_size: int,
+                  generator: Optional[torch.Generator] = None,
+                  stylize: Optional[StylizeConfig] = None, chunk: int = 100,
+                  sample_rng: Optional[np.random.RandomState] = None,
+                  log: Callable[[str], None] = print, name: str = "train",
+                  device: DeviceLike = None) -> Tuple[SegState, List[dict]]:
+    """Drive :func:`make_chunk_fn` to ``steps`` steps; returns (state, loss
+    history: one ``{"step", "loss"}`` record per chunk). Pool rows are drawn
+    with ``sample_rng.randint`` (``RandomState(0)`` by default), as in the
+    JAX package."""
+    dev = resolve_device(device)
+    chunk_fn = make_chunk_fn(stylize, dev)
+    rng = sample_rng or np.random.RandomState(0)
+    losses = []
+    done = 0
+    t0 = time.time()
+    while done < steps:
+        n = min(chunk, steps - done)
+        idxs = torch.from_numpy(rng.randint(0, pool_images.shape[0],
+                                            (n, batch_size))).to(dev)
+        state, generator, loss = chunk_fn(state, generator, pool_images,
+                                          pool_labels, idxs)
+        done += n
+        val = float(loss)  # the one host read of the chunk
+        losses.append({"step": done, "loss": val})
+        log(f"[{name}] step {done}/{steps} loss {val:.4f} "
+            f"({time.time() - t0:.0f}s)")
+    return state, losses
