@@ -86,7 +86,36 @@ order, each fatal on failure:
    ``benchmarks.py:config6`` magnitude-edit tail on its spectrum in three
    strategies (within 1e-5 of the max of each other); one launch of each
    pointwise kernel, none of another kernel, no plain version on the card;
-9. timing with CUDA events: the plane kernel, its plain version and
+9. fused-rest phase (the rest of the fused stylization): on
+   ``dft_pallas``, the 2D stack (Gibbs alpha in [0, 1], disk, wrap, spikes,
+   zero-fill p = 0.2, S&P) at 4x1x128x128 on the half spectrum and on the
+   complex path (the ``_rfft_eligible`` seam patched), and the 3D stack
+   with zero-fill, the data-dependent spike range and the plane wave on the
+   complex path at 2x4x128x128x64: each against the same call on the plain
+   versions (5e-5 of the max) and against complex128 transforms (at most 3x
+   the plain version's error), the launches checked by body, route and tier
+   (the full-spectrum r2c and c2r on the complex path); each of those axis
+   layouts alone (n = 128, and the full matrices at n = 240), against its
+   plain version and complex128, timed beside its bound and its
+   ``torch.fft`` call; ``hybrid`` against ``xla`` at 128x128x64 and
+   240x240x155 (1e-5 of the max); the 2D stack on ``dft``, card against
+   CPU (1e-5 of the max);
+10. GAN phase (the GAN family through ``run()`` at the registry's widths:
+   128x128 slices, batch 4, DCGAN ngf = ndf = 128, about 92 M parameters,
+   ReconGAN nf = 16): ``dcgan`` chunked for 4 epochs of 8 steps with its
+   FID and checkpoints every 2 epochs; a run killed after 2 epochs and
+   resumed to 4 against an uninterrupted one, with deterministic cuDNN
+   (equal prefix, the tail and the FID curve equal); ``recon_gan``,
+   ``recon_gan_freq`` and ``gibbs_gan`` chunked for 2 epochs of 8 steps;
+   one per-step ``dcgan`` epoch; the CLI with ``--mitigated``; one
+   ``dcgan_step`` and one ``recon_gan_step`` (gibbs), card against CPU from
+   the same weights and draws, in float64 (gradients within 1e-4 of the
+   largest; the float32 spreads reported: these gradients are
+   ill-conditioned in float32); no
+   hand-written kernel launched (the stylize runs ``auto`` -> ``dft``); per
+   kind ms per step, steps/s, FID, checkpoint save and restore ms, and over
+   single chunks the host reads, the device's idle share and top kernels;
+11. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -105,10 +134,12 @@ JSON object and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -221,6 +252,28 @@ PIPELINE_SMALL = (4, 32, 32, 16)
 # the magnitude-edit tail of the JAX package's benchmarks.py:config6
 EDIT_LOG_INTENSITY = 14.0
 EDIT_TOL = 1e-5
+# the rest of the fused stylization: the 2D stack of the GAN family's slices
+# (Gibbs alpha in [0, 1], disk, wrap, spikes, zero-fill, S&P) and a 3D stack
+# with zero-fill, the data-dependent spike range and the plane wave
+REST_2D_SHAPE = (4, 1, 128, 128)
+REST_3D_SHAPE = (2, 4, 128, 128, 64)
+REST_2D_STACK = dict(n_dims=2, gibbs_alpha=(0.0, 1.0), disk_r=(10.0, 30.0),
+                     wrap_alpha=(0.3, 0.8), spike=True, spike_range=(9.0, 10.0),
+                     zf_p=0.2, sap_p=0.05)
+REST_3D_STACK = dict(disk_r=(10.0, 25.0), spike=True, plane_axes=(55.0, 55.0, 30.0),
+                     plane_intensity=14.0, wrap_alpha=0.5, zf_p=0.2)
+# hybrid vs torch.fft: float32 transforms on both sides, relative to the max
+HYBRID_SHAPES = [(1, 4, 128, 128, 64), (1, 4, 240, 240, 155)]
+HYBRID_TOL = 1e-5
+# card vs CPU of the 2D stack on "dft" (float32 matmuls, TF32 off)
+CARD_CPU_TOL = 1e-5
+# the GAN phase: the registry's widths (128x128 slices, batch 4, DCGAN
+# ngf = ndf = 128, ReconGAN nf = 16), cut in depth only
+GAN_KINDS = ("dcgan", "recon_gan", "recon_gan_freq", "gibbs_gan")
+GAN_EPOCHS = {"dcgan": 4, "recon_gan": 2, "recon_gan_freq": 2, "gibbs_gan": 2}
+GAN_STEPS, GAN_CKPT_EVERY, GAN_POOL = 8, 2, 256
+# card vs CPU of one GAN step in float64, gradients relative to the largest
+GAN_GRAD_TOL = 1e-4
 
 
 def out(obj) -> None:
@@ -881,6 +934,54 @@ def _runner_rates(res: dict, batch: int, steps: int) -> dict:
             "vol_s_with_val": batch * steps * len(chunk) / (sum(chunk) + sum(val))}
 
 
+def chunk_probe(tag: str, one_chunk, steps: int) -> dict:
+    """Over single chunks (``one_chunk(epoch)`` returns the tensor the
+    runner reads after it), outside the counted runs: the host reads that
+    ``set_sync_debug_mode`` reports (a read of the result after the chunk is
+    the detector's control), the host's time to issue a chunk against its
+    wall time, and the device's busy time, idle share and top kernels from
+    a ``torch.profiler`` trace."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one_chunk(0)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = one_chunk(1)
+            n_chunk = len(caught)
+            result.cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    in_chunk = len([w for w in caught[:n_chunk] if "synchroniz" in str(w.message)])
+    check(len(syncs) > in_chunk,
+          f"{tag}: set_sync_debug_mode did not report the result's read: {syncs}")
+    t0 = time.perf_counter()
+    result = one_chunk(2)
+    issue_s = time.perf_counter() - t0
+    result.cpu()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_chunk(3).cpu()
+    # device work only: a user annotation's range (the optimizer step's
+    # record_function) also lands on the device and would count twice
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"host_reads_per_chunk": in_chunk, "steps": steps, "kinds": sorted(set(syncs))[:5],
+            "chunk_issue_ms": issue_s * 1e3, "chunk_wall_ms": wall_s * 1e3,
+            "device_busy_ms": busy_ms or None,
+            "device_idle_share": (1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                               for e in top]}
+
+
 def runner_phase(dev) -> dict:
     """The experiment runner's segmentation family at the registry's full
     width (UNet 16..256, 2 residual units, bf16; 128x128x64 textured
@@ -899,7 +1000,6 @@ def runner_phase(dev) -> dict:
     summary line; (e) the host reads that ``set_sync_debug_mode`` reports
     over one chunk of each profile."""
     import tempfile
-    import warnings
 
     from mvtb_tpu_torch.experiments import registry, runner
     from mvtb_tpu_torch.ops import fused, fused_plane
@@ -1031,13 +1131,8 @@ def runner_phase(dev) -> dict:
               f"CLI summary {summary}")
         res["cli"] = {"summary": summary, "seconds": time.perf_counter() - t0}
 
-    # (e) over one chunk of each profile, outside the counted runs: the host
-    # reads set_sync_debug_mode reports (a read of the loss after it is the
-    # detector's control), the host's time to issue the chunk against its
-    # wall time, and the device's busy time from a profiler trace
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # (e) the host reads, issue and wall time and device busy time over one
+    # chunk of each profile
     reads = {}
     for tag, cfg in (("default", base), ("fast", fast)):
         state = runner._seg_state(cfg, 0, dev)
@@ -1049,43 +1144,7 @@ def runner_phase(dev) -> dict:
             return chunk_fn(state, runner.epoch_generator(0, epoch, dev), pool_i, pool_l,
                             idxs)[2]
 
-        one_chunk(0)  # warm
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                loss = one_chunk(1)
-                n_chunk = len(caught)
-                float(loss)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        syncs = [str(w.message).splitlines()[0] for w in caught
-                 if "synchroniz" in str(w.message)]
-        check(len(syncs) > len([w for w in caught[:n_chunk] if "synchroniz" in str(w.message)]),
-              f"{tag}: set_sync_debug_mode did not report the loss read: {syncs}")
-        t0 = time.perf_counter()
-        loss = one_chunk(2)
-        issue_s = time.perf_counter() - t0
-        float(loss)
-        wall_s = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            float(one_chunk(3))
-        # device work only: a user annotation's range (the optimizer step's
-        # record_function) also lands on the device and would count twice
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        reads[tag] = {
-            "host_reads_per_chunk": len([w for w in caught[:n_chunk]
-                                         if "synchroniz" in str(w.message)]),
-            "steps": RUNNER_STEPS, "kinds": sorted(set(syncs))[:5],
-            "chunk_issue_ms": issue_s * 1e3, "chunk_wall_ms": wall_s * 1e3,
-            "device_busy_ms": busy_ms or None,
-            "device_idle_share": (1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
-            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                               for e in top]}
+        reads[tag] = chunk_probe(tag, one_chunk, RUNNER_STEPS)
         del state, pool_i, pool_l
     res["sync_debug"] = reads
     torch.cuda.empty_cache()
@@ -1348,10 +1407,480 @@ def pointwise_timing(dev) -> dict:
     return res
 
 
-def kernels_line(sl, tr, rn, tm, ax, cp, pt) -> list:
+# --------------------------------------------------------------------------
+# The rest of the fused stylization: 2D, zero-fill, the data-dependent spike
+# range, the complex path, hybrid
+# --------------------------------------------------------------------------
+
+class axis_calls:
+    """Context: every axis-kernel call is logged as (body, orientation,
+    view, matrix shape, tier); with ``plain=True`` a call on the card runs
+    the plain version instead, launching and counting nothing."""
+
+    def __init__(self, plain: bool = False):
+        self.plain, self.log = plain, []
+
+    def __enter__(self):
+        from mvtb_tpu_torch.ops import pallas_dft
+
+        self._real = pallas_dft._call
+
+        def call(body, lane, ins, mats, precision):
+            self.log.append((body, "lane" if lane else "sub", tuple(ins[0].shape),
+                             tuple(mats[0].shape), precision))
+            if self.plain:
+                return pallas_dft.plain(body, lane, ins, mats, precision)
+            return self._real(body, lane, ins, mats, precision)
+
+        pallas_dft._call = call
+        return self
+
+    def __exit__(self, *exc):
+        from mvtb_tpu_torch.ops import pallas_dft
+
+        pallas_dft._call = self._real
+
+
+class float64_transforms:
+    """Context: the general stylize path's transforms in complex128
+    ``torch.fft`` (the exact yardstick; the stages keep their arithmetic)."""
+
+    def __enter__(self):
+        from mvtb_tpu_torch.ops import fused
+
+        self._saved = fused._forward, fused._inverse
+
+        def forward(x, backend, nd, use_rfft):
+            f = torch.fft.rfftn if use_rfft else torch.fft.fftn
+            k = f(x.double(), dim=tuple(range(2, 2 + nd)))
+            return k.real.contiguous(), k.imag.contiguous()
+
+        def inverse(re, im, spatial, backend, use_rfft):
+            k = torch.complex(re.double(), im.double())
+            dims = tuple(range(2, 2 + len(spatial)))
+            if use_rfft:
+                return torch.fft.irfftn(k, s=spatial, dim=dims)
+            return torch.fft.ifftn(k, dim=dims).real
+
+        fused._forward, fused._inverse = forward, inverse
+        return self
+
+    def __exit__(self, *exc):
+        from mvtb_tpu_torch.ops import fused
+
+        fused._forward, fused._inverse = self._saved
+
+
+class complex_path:
+    """Context: the stylize's ``_rfft_eligible`` seam patched to False."""
+
+    def __enter__(self):
+        from mvtb_tpu_torch.ops import fused
+
+        self._saved = fused._rfft_eligible
+        fused._rfft_eligible = lambda cfg, spatial: False
+        return self
+
+    def __exit__(self, *exc):
+        from mvtb_tpu_torch.ops import fused
+
+        fused._rfft_eligible = self._saved
+
+
+def _full_matrix(body: str, mat_shape) -> bool:
+    """An r2c or c2r launch on a full-spectrum (n x n) matrix, not a half one."""
+    return body in ("r2c", "c2r") and mat_shape[0] == mat_shape[1]
+
+
+def rest_axis_row(body, lane, view, kind, n, inverse, dev, seed) -> dict:
+    """One axis-kernel layout of this slice's paths at ``high``: the kernel
+    against its plain version (AXIS_TOL) and against complex128 (at most
+    EXACT_RATIO x the plain version's error), its time beside the plain
+    version's, its bound and the one torch.fft call of the same transform."""
+    from mvtb_tpu_torch.ops import pallas_dft
+
+    ins, mats = axis_case(body, view, kind, n, inverse, dev, seed)
+    call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+    got = call(body, ins, mats, PATH_TIER)
+    ref = pallas_dft.plain(body, lane, ins, mats, PATH_TIER)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, b) for a, b in zip(got, ref))
+    label = f"{body} {'lane' if lane else 'sub'} {kind} {list(view)}"
+    check(err <= AXIS_TOL[PATH_TIER], f"axis kernel vs plain {label}: {err:.3e}")
+    yard = axis_exact(body, lane, ins, kind, n, inverse)
+    k_err, p_err = complex_rel_err(got, yard), complex_rel_err(ref, yard)
+    check(k_err <= EXACT_RATIO * p_err,
+          f"{label}: kernel vs complex128 {k_err:.3e}, plain {p_err:.3e}")
+    dim = -1 if lane else 1
+    z = torch.complex(ins[0], ins[1]) if len(ins) == 2 else ins[0]
+    lib = {("r2c", "half"): lambda: torch.fft.rfft(z, dim=dim),
+           ("r2c", "full"): lambda: torch.fft.fft(z, dim=dim),
+           ("c2c", "gauss"): lambda: (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim),
+           ("c2r", "half_inv"): lambda: torch.fft.irfft(z, n=n, dim=dim),
+           ("c2r", "full"): lambda: torch.fft.ifft(z, dim=dim).real}[(body, kind)]
+    _, _, bound_ms, bound_by = axis_bound(body, lane, view, mats, PATH_TIER)
+    row = {"layout": label, "max_rel_err": err,
+           "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+           "vs_complex128": {"kernel": k_err, "plain": p_err},
+           "chunks": pallas_dft.mat_layout(body, mats[0].shape[1])[1],
+           "ms": cuda_ms(lambda: call(body, ins, mats, PATH_TIER), 10),
+           "plain_ms": cuda_ms(lambda: pallas_dft.plain(body, lane, ins, mats, PATH_TIER), 5),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib, 10)}
+    del ins, got, ref, yard
+    return row
+
+
+def fused_rest_phase(dev) -> dict:
+    """The rest of the fused stylization on the card.
+
+    (a) the 2D stack at 4x1x128x128 (half spectrum), the same stack on the
+    complex path, and the 3D zero-fill stack with the data-dependent spike
+    range and the plane wave on the complex path at 2x4x128x128x64, each on
+    ``dft_pallas``: against the same call on the plain versions (AXIS_TOL at
+    ``high``) and against complex128 transforms (at most EXACT_RATIO x the
+    plain version's error), the launches checked by body, route and tier,
+    the full-spectrum r2c and c2r among them; then every layout of those
+    paths alone, timed. (b) ``hybrid`` against ``xla`` at 128x128x64 and at
+    the non-smooth 240x240x155. (c) the 2D stack on ``dft``, card against
+    CPU."""
+    from mvtb_tpu_torch.ops import fused, pallas_dft
+
+    res = {"stylize": {}}
+    cases = [("2d half", REST_2D_STACK, REST_2D_SHAPE, False),
+             ("2d complex", REST_2D_STACK, REST_2D_SHAPE, True),
+             ("3d complex zf data-dependent", REST_3D_STACK, REST_3D_SHAPE, True)]
+    for i, (name, stack, shape, cplx) in enumerate(cases):
+        g = torch.Generator().manual_seed(60 + i)
+        x = torch.randn(shape, generator=g).to(dev)
+        cfg = fused.StylizeConfig(**stack, fft_backend="dft_pallas")
+        with contextlib.ExitStack() as ctx:
+            if cplx:
+                ctx.enter_context(complex_path())
+            draws = fused.sample_draws(cfg, shape[2:], shape[0], shape[1], generator=g,
+                                       device="cpu")
+            _zero_launch_counts()
+            pallas_dft.tier_launches.clear()
+            with axis_calls() as kc:
+                got = fused.stylize_batch(x, cfg, draws=draws, device=dev)
+            torch.cuda.synchronize()
+            launches = dict(pallas_dft.launches)
+            tiers = {" ".join(k): v for k, v in pallas_dft.tier_launches.items()}
+            with axis_calls(plain=True):
+                ref = fused.stylize_batch(x, cfg, draws=draws, device=dev)
+            with float64_transforms():
+                exact = fused.stylize_batch(x, cfg, draws=draws, device=dev)
+            ms = cuda_ms(lambda: fused.stylize_batch(x, cfg, draws=draws, device=dev), 5)
+        nd = len(shape) - 2
+        expect = {"r2c": 1, "c2c": 2 * (nd - 1), "c2r": 1}
+        check(launches == expect, f"{name}: launches {launches}, expected {expect}")
+        check(set(tiers) == {f"{b} wgmma {PATH_TIER}" for b in expect},
+              f"{name}: launches by route and tier {tiers}")
+        full = sorted({b for b, _, _, m, _ in kc.log if _full_matrix(b, m)})
+        check(full == (["c2r", "r2c"] if cplx else []), f"{name}: full-spectrum launches {full}")
+        check(bool(torch.isfinite(got).all()) and got.shape == x.shape, f"{name}: output")
+        err = rel_err(got, ref)
+        check(err <= AXIS_TOL[PATH_TIER], f"{name}: kernels vs plain {err:.3e}")
+        k_err, p_err = rel_err(got, exact), rel_err(ref, exact)
+        check(k_err <= EXACT_RATIO * p_err,
+              f"{name}: kernels vs complex128 {k_err:.3e}, plain {p_err:.3e}")
+        res["stylize"][name] = {
+            "shape": list(shape), "launches": launches, "by_route_tier": tiers,
+            "layouts": sorted({f"{b} {o} {list(v)} mat {list(m)}" for b, o, v, m, _ in kc.log}),
+            "kernels_vs_plain": err, "vs_complex128": {"kernels": k_err, "plain": p_err},
+            "ms": ms}
+        del x, got, ref, exact
+
+    # every layout of those paths, alone: 2D half (r2c lane W, c2c sub H,
+    # c2r lane W), the complex path's full r2c (first axis) and c2r (last
+    # axis, two 80-column chunks at n = 128), and its lane c2c
+    B, C, H, W = REST_2D_SHAPE
+    n3 = REST_3D_SHAPE[0] * REST_3D_SHAPE[1]
+    _, _, H3, W3, D3 = REST_3D_SHAPE
+    layouts = [("r2c", True, (B * C * H, W), "half", W, False),
+               ("c2c", False, (B * C, H, W // 2 + 1), "gauss", H, False),
+               ("c2r", True, (B * C * H, W // 2 + 1), "half_inv", W, True),
+               ("r2c", False, (B * C, H, W), "full", H, False),
+               ("c2c", True, (B * C * H, W), "gauss", W, False),
+               ("c2r", True, (B * C * H, W), "full", W, True),
+               ("r2c", False, (n3, H3, W3 * D3), "full", H3, False),
+               ("c2r", True, (n3 * H3 * W3, D3), "full", D3, True),
+               ("r2c", False, (8, 240, 240), "full", 240, False),
+               ("c2r", True, (8 * 240, 240), "full", 240, True)]
+    res["layouts"] = [rest_axis_row(*lay, dev, seed=70 + i) for i, lay in enumerate(layouts)]
+    torch.cuda.empty_cache()
+
+    # (b) hybrid against torch.fft
+    res["hybrid"] = {}
+    for i, shape in enumerate(HYBRID_SHAPES):
+        g = torch.Generator().manual_seed(80 + i)
+        x = torch.randn(shape, generator=g).to(dev)
+        draws = fused.sample_draws(fused.StylizeConfig(**REST_3D_STACK), shape[2:], shape[0],
+                                   shape[1], generator=g, device="cpu")
+        outs = {b: fused.stylize_batch(x, fused.StylizeConfig(**REST_3D_STACK, fft_backend=b),
+                                       draws=draws, device=dev) for b in ("hybrid", "xla")}
+        err = rel_err(outs["hybrid"], outs["xla"])
+        check(err <= HYBRID_TOL, f"hybrid vs xla at {shape}: {err:.3e}")
+        res["hybrid"][str(list(shape))] = {
+            "rel_err": err, **{f"{b}_ms": cuda_ms(lambda b=b: fused.stylize_batch(
+                x, fused.StylizeConfig(**REST_3D_STACK, fft_backend=b), draws=draws,
+                device=dev), 3) for b in ("hybrid", "xla")}}
+        del x, outs
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU, the 2D stack on dft
+    g = torch.Generator().manual_seed(90)
+    x = torch.randn(REST_2D_SHAPE, generator=g)
+    cfg = fused.StylizeConfig(**REST_2D_STACK, fft_backend="dft")
+    draws = fused.sample_draws(cfg, x.shape[2:], x.shape[0], x.shape[1], generator=g,
+                               device="cpu")
+    err = rel_err(fused.stylize_batch(x, cfg, draws=draws, device=dev).cpu(),
+                  fused.stylize_batch(x, cfg, draws=draws, device="cpu"))
+    check(err <= CARD_CPU_TOL, f"2D stack card vs CPU on dft: {err:.3e}")
+    res["card_vs_cpu_2d_dft"] = err
+    return res
+
+
+# --------------------------------------------------------------------------
+# The GAN family
+# --------------------------------------------------------------------------
+
+class RecordingSGD(torch.optim.Optimizer):
+    """SGD (lr 1e-3) that keeps each parameter's last gradient, for reading
+    the gradients of a GAN step exactly."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["grad"] = p.grad.clone()
+                p.sub_(1e-3 * p.grad)
+
+
+def _gan_step_card_vs_cpu(kind: str, dev) -> dict:
+    """One training step at the registry's width on the card and on the CPU,
+    from the same weights and draws, in float64 (deterministic cuDNN): the
+    largest gradient difference over the largest gradient, per net, held to
+    GAN_GRAD_TOL. In float32 these nets' gradients are ill-conditioned
+    (two float32 runs part by parts in 1e2 of the largest; both spreads
+    against the CPU's float64 step are reported), so the step's arithmetic
+    is held in float64. The Gibbs compress is the stylize, held card
+    against CPU in the fused-rest phase: here the CPU's compressed batches
+    are handed to the card's step, so both steps see the same inputs."""
+    from mvtb_tpu_torch.experiments import registry, runner
+    from mvtb_tpu_torch.train import gan
+
+    cfg = registry.get(kind)
+    cpu = torch.device("cpu")
+    real = torch.from_numpy(next(runner._slices_iter(cfg, 5, cfg.batch_size)))
+    gen = torch.Generator().manual_seed(6)
+    z = torch.randn((cfg.batch_size, cfg.nz, 1, 1), generator=gen)
+    kw = runner._recon_kwargs(cfg) if kind != "dcgan" else {}
+    draws = (gan.sample_recon_draws(kw["compress_kind"], real.shape, gen, cpu)
+             if kind != "dcgan" else None)
+    compressed = []
+    real_compress = gan.compress
+
+    def step(d, dtype, replay):
+        g_state, d_state = runner._gan_states(cfg, 3, d)
+        nets = [gan.GANState(st.model.to(dtype), RecordingSGD(st.model.parameters()))
+                for st in (g_state, d_state)]
+        if kind == "dcgan":
+            m = gan.dcgan_step(*nets, real.to(d, dtype), z.to(d, dtype))
+        else:
+            def compress(batch, draw, *a, **k):
+                if replay:
+                    return compressed.pop(0).to(d, dtype)
+                out = real_compress(batch, draw, *a, **k).to(dtype)
+                compressed.append(out)
+                return out
+
+            gan.compress = compress
+            try:
+                m = gan.recon_gan_step(*nets, real.to(d, dtype),
+                                       [dr.to(d) for dr in draws], **kw)
+            finally:
+                gan.compress = real_compress
+        grads = [[st.optimizer.state[p]["grad"].double().cpu() for p in st.model.parameters()]
+                 for st in nets]
+        return {k: float(v) for k, v in m.items()}, grads
+
+    def spread(a, b):
+        return [max(float((x - y).abs().max()) for x, y in zip(ga, gb))
+                / max(float(y.abs().max()) for y in gb) for ga, gb in zip(a, b)]
+
+    ref_m, ref = step(cpu, torch.float64, False)
+    # the card's float64 step sees the CPU's compressed batches
+    card_m, card = step(dev, torch.float64, True)
+    out = {"losses": {"cpu_float64": ref_m, "card_float64": card_m}}
+    for net, err in zip(("g", "d"), spread(card, ref)):
+        check(err <= GAN_GRAD_TOL, f"{kind} step card vs CPU (float64), {net} gradients: {err:.3e}")
+        out[f"{net}_grad_err_over_max"] = err
+    for where, d in (("cpu", cpu), ("card", dev)):
+        compressed.clear()
+        _, g32 = step(d, torch.float32, False)
+        out[f"{where}_float32_vs_cpu_float64_over_max"] = spread(g32, ref)
+    return out
+
+
+def _gan_run_summary(res: dict, batch: int) -> dict:
+    t = res["timing"]
+    after = t["chunk_s"][1:]
+    steps = len(res["history"]["g_loss"]) // len(t["chunk_s"])
+    ms = statistics.median(after) / steps * 1e3 if after else None
+    return {"chunk_ms": [c * 1e3 for c in t["chunk_s"]],
+            "ms_per_step_after_first": ms,
+            "steps_per_s_after_first": steps * len(after) / sum(after) if after else None,
+            "slices_per_s_after_first": batch * steps * len(after) / sum(after) if after else None,
+            "pool_s": t["pool_s"], "fid_ms": [f * 1e3 for f in t["fid_s"]],
+            "fid": res["history"].get("fid"), "save_ms": [v * 1e3 for v in t["save_s"]],
+            "restore_ms": None if t["restore_s"] is None else t["restore_s"] * 1e3,
+            "launches": res["launches"]}
+
+
+def gan_phase(dev) -> dict:
+    """The GAN family through ``run()`` at the registry's widths (128x128
+    slices, batch 4, DCGAN ngf = ndf = 128, ReconGAN nf = 16), cut in depth:
+    (a) ``dcgan`` chunked for 4 epochs of 8 steps with its FID and
+    checkpoints every 2 epochs; then a run killed after 2 epochs and
+    resumed to 4 against an uninterrupted one, both with deterministic
+    cuDNN: equal prefix, the tail equal; (b) ``recon_gan``,
+    ``recon_gan_freq``, ``gibbs_gan`` chunked for 2 epochs of 8 steps; (c)
+    one per-step ``dcgan`` epoch; (d) the CLI with ``--mitigated`` in a
+    subprocess; (e) one ``dcgan_step`` and one ``recon_gan_step`` (gibbs),
+    card against CPU; (f) per kind, over single chunks, the host reads, the
+    device's idle share and top kernels. No run launches a hand-written
+    kernel: the GAN family's stylize runs ``auto`` -> ``dft``
+    (``torch.matmul``), as the JAX package's runs ``dft`` on the TPU."""
+    import tempfile
+
+    from mvtb_tpu_torch.experiments import registry, runner
+    from mvtb_tpu_torch.train import CheckpointManager, chunked
+
+    res = {"widths": {k: registry.get(k).gan_nf for k in GAN_KINDS}}
+
+    def drive(tmp, tag, kind, **kw):
+        _zero_launch_counts()
+        out = runner.run(kind, steps_per_epoch=GAN_STEPS, workdir=f"{tmp}/{tag}",
+                         verbose=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        out["launches"] = _launch_counts()
+        check(not any(out["launches"].values()),
+              f"{tag}: a hand-written kernel was launched: {out['launches']}")
+        h = out["history"]
+        check(all(math.isfinite(v) for k in h if k not in ("epochs", "fid_epochs")
+                  for v in h[k]), f"{tag}: history {h}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) dcgan, chunked, default cuDNN
+        a = drive(tmp, "dcgan", "dcgan", chunked=True, epochs=GAN_EPOCHS["dcgan"],
+                  ckpt_every=GAN_CKPT_EVERY)
+        want = list(range(GAN_CKPT_EVERY, GAN_EPOCHS["dcgan"] + 1, GAN_CKPT_EVERY))
+        check(a["history"]["fid_epochs"] == want and math.isfinite(a["fid"]),
+              f"dcgan FID curve {a['history'].get('fid_epochs')} {a.get('fid')}")
+        check(CheckpointManager(f"{tmp}/dcgan/ckpt").all_steps() == want, "dcgan checkpoints")
+        res["dcgan"] = {"final_fid": a["fid"],
+                        **_gan_run_summary(a, registry.get("dcgan").batch_size)}
+        del a
+        shutil.rmtree(f"{tmp}/dcgan")
+
+        # kill and resume, deterministic cuDNN
+        torch.backends.cudnn.deterministic = True
+        try:
+            kw = dict(chunked=True, ckpt_every=GAN_CKPT_EVERY)
+            full = drive(tmp, "full", "dcgan", epochs=GAN_EPOCHS["dcgan"], **kw)
+            shutil.rmtree(f"{tmp}/full")
+            part = drive(tmp, "part", "dcgan", epochs=GAN_CKPT_EVERY, **kw)
+            resumed = drive(tmp, "part", "dcgan", epochs=GAN_EPOCHS["dcgan"], resume=True, **kw)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        h, hf = resumed["history"], full["history"]
+        n = GAN_CKPT_EVERY * GAN_STEPS
+        check(resumed["resumed_from"] == GAN_CKPT_EVERY, f"resumed from {resumed['resumed_from']}")
+        check(h["g_loss"][:n] == part["history"]["g_loss"], "the resumed prefix changed")
+        tail = max(abs(x - y) for k in chunked.DCGAN_CURVES
+                   for x, y in zip(h[k][n:], hf[k][n:]))
+        fid_tail = max(abs(x - y) for x, y in zip(h["fid"], hf["fid"]))
+        check(tail == 0.0 and fid_tail == 0.0,
+              f"the resumed tail differs from the uninterrupted run: {tail}, FID {fid_tail}")
+        res["dcgan_resume"] = {"prefix_equal": True, "tail_max_abs_diff": tail,
+                               "fid_max_abs_diff": fid_tail,
+                               "restore_ms": resumed["timing"]["restore_s"] * 1e3,
+                               "save_ms": [v * 1e3 for v in full["timing"]["save_s"]]}
+        del full, part, resumed
+        shutil.rmtree(f"{tmp}/part")
+
+        # (b) the ReconGAN kinds, chunked
+        for kind in GAN_KINDS[1:]:
+            r = drive(tmp, kind, kind, chunked=True, epochs=GAN_EPOCHS[kind],
+                      ckpt_every=GAN_CKPT_EVERY)
+            check(len(r["history"]["g_loss"]) == GAN_EPOCHS[kind] * GAN_STEPS, f"{kind} curves")
+            res[kind] = _gan_run_summary(r, registry.get(kind).batch_size)
+            del r
+
+        # (c) one per-step dcgan epoch
+        t0 = time.perf_counter()
+        r = drive(tmp, "dcgan_step", "dcgan", epochs=1)
+        res["dcgan_per_step"] = {"seconds": time.perf_counter() - t0, "fid": r["fid"],
+                                 "losses": r["history"]["g_loss"], "launches": r["launches"]}
+        del r
+
+        # (d) the CLI, as a user runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mvtb_tpu_torch.experiments", "run", "dcgan",
+             "--mitigated", "--chunked", "--epochs", "1", "--steps", "4", "--quiet",
+             "--workdir", f"{tmp}/cli"],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        check(len(lines) == 1 and set(json.loads(lines[0])) == {"wall_time_s"},
+              f"CLI printed {lines}")
+        with open(f"{tmp}/cli/dcgan_mitigated_result.json") as f:
+            cli_fid = json.load(f)["fid"]
+        check(math.isfinite(cli_fid), f"CLI FID {cli_fid}")
+        res["cli"] = {"summary": json.loads(lines[0]), "fid": cli_fid,
+                      "seconds": time.perf_counter() - t0}
+
+    # (e) one step of each step function, card against CPU
+    torch.backends.cudnn.deterministic = True
+    try:
+        res["card_vs_cpu"] = {k: _gan_step_card_vs_cpu(k, dev) for k in ("dcgan", "gibbs_gan")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (f) over single chunks of each kind
+    probes = {}
+    for kind in GAN_KINDS:
+        cfg = registry.get(kind)
+        g_state, d_state = runner._gan_states(cfg, 0, dev)
+        pool = torch.from_numpy(next(runner._slices_iter(cfg, 0, GAN_POOL))).to(dev)
+        idxs = torch.randint(0, GAN_POOL, (GAN_STEPS, cfg.batch_size), device=dev)
+        if kind == "dcgan":
+            chunk_fn = chunked.make_dcgan_chunk_fn(cfg.nz, device=dev)
+        else:
+            chunk_fn = chunked.make_recon_gan_chunk_fn(**runner._recon_kwargs(cfg), device=dev)
+
+        def one_chunk(epoch, chunk_fn=chunk_fn, g_state=g_state, d_state=d_state, pool=pool,
+                      idxs=idxs):
+            return chunk_fn(g_state, d_state, runner.epoch_generator(1, epoch, dev), pool,
+                            idxs)[3]
+
+        probes[kind] = chunk_probe(kind, one_chunk, GAN_STEPS)
+        del g_state, d_state, pool
+        torch.cuda.empty_cache()
+    res["chunk_probe"] = probes
+    return res
+
+
+def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
     path and the runner's fast profile (timed at the eval slice), each axis
-    kernel from the train path."""
+    kernel from the train path and the fused-rest paths (timed at the train
+    shape)."""
     main_t = tm["plane slice"]
     by_path = {"eval_slice": sl["launches"],
                "runner_fast": rn["fast"]["launches"]["fused_plane"]}
@@ -1366,6 +1895,8 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt) -> list:
         "library_ms": main_t["library_ms_fft2_ifft2_transform_only"]}]
     # the axis kernels per train step: the sum over the body's launches of
     # one stylize call at the train shape, in the tier the path runs
+    rest = {body: sum(c["launches"][body] for c in fr["stylize"].values())
+            for body in LAUNCHES_PER_STEP}
     for body in LAUNCHES_PER_STEP:
         rows = [r for k, r in ax.items()
                 if k.startswith("train ") and r["body"] == body and r["precision"] == PATH_TIER]
@@ -1374,7 +1905,9 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt) -> list:
         kernels.append({
             "name": f"axis_dft_{body}", "route": "cuda",
             "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
-            "replaces": AXIS_REPLACES[body], "launches": tr["launches"][body],
+            "replaces": AXIS_REPLACES[body],
+            "launches": tr["launches"][body] + rest[body],
+            "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
@@ -1452,6 +1985,15 @@ def main() -> int:
     out({"corruption_phase": cp, "card": smi})
 
     t0 = time.perf_counter()
+    fr = fused_rest_phase(dev)
+    fr["seconds"] = time.perf_counter() - t0
+    out({"fused_rest_phase": fr, "card": smi})
+    t0 = time.perf_counter()
+    gp = gan_phase(dev)
+    gp["seconds"] = time.perf_counter() - t0
+    out({"gan_phase": gp, "card": smi})
+
+    t0 = time.perf_counter()
     tm = timing_phase(dev)
     out({"timing": tm, "card": smi, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -1461,7 +2003,7 @@ def main() -> int:
     pt = pointwise_timing(dev)
     out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt)
+    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",

@@ -5,11 +5,16 @@
         --epochs 2 --steps 4 --workdir runs/gibbs12p5 [--fast] [--resume]
     python -m mvtb_tpu_torch.experiments run gibbs12p5 --device cpu ...
 
+    python -m mvtb_tpu_torch.experiments run dcgan --chunked --epochs 4 \
+        --steps 8 --ckpt-every 2 --workdir runs/dcgan [--mitigated]
+
 The counterpart of the JAX package's CLI (mvtb_tpu/experiments/__main__.py);
-it prints the same one summary JSON line. ``--device`` defaults to ``cuda``. ``--pool`` and
-``--val-batches`` set ``run``'s pool and held-out sizes. The ``domain``
-command and ``--mitigated`` (GAN configs) raise ``NotImplementedError``
-naming their ROADMAP item.
+it prints the same one summary JSON line. ``--device`` defaults to
+``cuda``. ``--pool`` and ``--val-batches`` set ``run``'s pool and held-out
+sizes; ``--ckpt-every`` the checkpoint (and DCGAN FID) cadence of chunked
+GAN runs; ``--mitigated`` runs a GAN config's mitigation profile
+(``registry.mitigated``: one-sided label smoothing 0.9). The ``domain``
+command raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,7 +53,10 @@ def main(argv=None) -> int:
         p.add_argument("--val-batches", type=int, default=12,
                        help="batches in the fixed held-out set")
         p.add_argument("--mitigated", action="store_true",
-                       help="GAN-collapse mitigation profile (GAN configs)")
+                       help="GAN-collapse mitigation profile: one-sided "
+                            "label smoothing 0.9 (registry.mitigated)")
+        p.add_argument("--ckpt-every", type=int, default=None,
+                       help="checkpoint/FID cadence in epochs (chunked GAN runs)")
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the plain "
                             "versions of the kernels)")
@@ -61,16 +69,25 @@ def main(argv=None) -> int:
         for n in names():
             print(n)
         return 0
+    if args.cmd == "domain" and args.mitigated:
+        parser.error("--mitigated is only supported with the 'run' command")
     if args.cmd == "domain":
         run_domain_experiment(args.name)
+    target = args.name
     if args.mitigated:
-        raise NotImplementedError(
-            "--mitigated (GAN configs): ROADMAP.md section 1, item 7 (GANs)")
-    result = run(args.name, epochs=args.epochs, steps_per_epoch=args.steps,
+        from mvtb_tpu_torch.experiments.registry import get, mitigated
+        from mvtb_tpu_torch.experiments.runner import GAN_KINDS
+
+        base = get(args.name)
+        if base.kind not in GAN_KINDS:
+            parser.error(f"--mitigated applies to GAN configs only "
+                         f"({args.name} is kind={base.kind!r})")
+        target = mitigated(base)
+    result = run(target, epochs=args.epochs, steps_per_epoch=args.steps,
                  seed=args.seed, workdir=args.workdir, verbose=not args.quiet,
                  val_batches=args.val_batches, chunked=args.chunked,
                  resume=args.resume, pool=args.pool, fast=args.fast,
-                 device=args.device)
+                 device=args.device, ckpt_every=args.ckpt_every)
     summary = {k: v for k, v in result.items()
                if k in ("best_dice", "gap", "wall_time_s")}
     print(json.dumps(summary, default=float))

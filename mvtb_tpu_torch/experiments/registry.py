@@ -7,8 +7,8 @@ these as copy-pasted files differing in 1-10 constant lines; here one
 each clone. Corruption specs map onto the fused on-device
 :class:`~mvtb_tpu_torch.ops.fused.StylizeConfig`. The entries are data,
 equal field by field to the JAX package's (``tests/test_torch_registry.py``);
-the runner so far runs the ``segmentation`` kind, and the others raise
-``NotImplementedError`` naming their ROADMAP item. The name-for-name
+the runner runs the ``segmentation`` and GAN kinds, and the learnable
+kinds raise ``NotImplementedError`` naming their ROADMAP item. The name-for-name
 manifest of the reference scripts stays with the JAX package.
 
 Semantics note (verified against the scripts): every reference

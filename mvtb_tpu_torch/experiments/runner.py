@@ -1,18 +1,20 @@
 """Config-driven experiment runner (counterpart of
-mvtb_tpu/experiments/runner.py): the segmentation family.
+mvtb_tpu/experiments/runner.py): the segmentation and GAN families.
 
-:func:`run` executes a registry entry of kind ``segmentation`` end to end,
-the replacement for the reference's per-script training loops (the T1
-template ``baseline.py:232-318`` and its clones): per-step training with
-prefetched batches, or chunked training over a pool that lives on the
-card; validation every ``val_interval`` epochs over a fixed held-out set;
-full-state checkpoints; resume. Data comes from
+:func:`run` executes a registry entry end to end, the replacement for the
+reference's per-script training loops: the segmentation kind (the T1
+template ``baseline.py:232-318`` and its clones) with validation every
+``val_interval`` epochs over a fixed held-out set, and the GAN kinds
+(``dcgan``, ``recon_gan``, ``recon_gan_freq``, ``gibbs_gan``;
+``50_reconstruction/``, ``351_adversarial_gibbs/``) with a frozen-encoder
+FID for DCGAN. Each runs per step, or chunked over a pool that lives on the
+card, with full-state checkpoints and resume. Data comes from
 :mod:`mvtb_tpu_torch.data.synthetic`.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the learnable-stylization kinds (section 1, item 6), the GAN kinds
-(item 7) and :func:`run_domain_experiment` (item 5, with the data loaders
-of item 4 and the evaluation harness of item 3).
+item: the learnable-stylization kinds (section 1, item 6) and
+:func:`run_domain_experiment` (item 5, with the data loaders of item 4 and
+the evaluation harness of item 3).
 """
 
 from __future__ import annotations
@@ -27,12 +29,13 @@ import torch
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.data.prefetch import device_prefetch
-from mvtb_tpu_torch.data.synthetic import cached_batches
+from mvtb_tpu_torch.data.synthetic import cached_batches, make_volume
 from mvtb_tpu_torch.experiments.registry import ExperimentConfig, fast_science
 from mvtb_tpu_torch.experiments.registry import get as get_config
 from mvtb_tpu_torch.models import UNet
 from mvtb_tpu_torch.train.checkpoint import CheckpointManager
-from mvtb_tpu_torch.train.chunked import make_chunk_fn
+from mvtb_tpu_torch.train.chunked import (DCGAN_CURVES, RECON_CURVES, make_chunk_fn,
+                                          make_dcgan_chunk_fn, make_recon_gan_chunk_fn)
 from mvtb_tpu_torch.train.seg import (EpochMetrics, SegState, create_seg_state,
                                       reference_optimizer, seg_eval_step,
                                       seg_train_step)
@@ -43,15 +46,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _TODO_KINDS = {
     "learnable_gibbs": "ROADMAP.md section 1, item 6 (learnable stylization)",
     "learnable_spikes": "ROADMAP.md section 1, item 6 (learnable stylization)",
-    "dcgan": "ROADMAP.md section 1, item 7 (GANs)",
-    "recon_gan": "ROADMAP.md section 1, item 7 (GANs)",
-    "recon_gan_freq": "ROADMAP.md section 1, item 7 (GANs)",
-    "gibbs_gan": "ROADMAP.md section 1, item 7 (GANs)",
 }
 
-# the keys of {name}_result.json, as the JAX package writes them for a
-# segmentation run
-_RESULT_KEYS = ("history", "best_dice", "wall_time_s")
+GAN_KINDS = ("dcgan", "recon_gan", "recon_gan_freq", "gibbs_gan")
+
+# the keys of {name}_result.json, as the JAX package writes them
+_RESULT_KEYS = ("history", "best_dice", "wall_time_s", "fid")
 
 
 def _data_iter(cfg: ExperimentConfig, seed: int, batch_size: int,
@@ -100,6 +100,28 @@ def _pool_arrays(cfg: ExperimentConfig, seed: int, pool: int,
         lbls.append(np.asarray(l[0], np.float32))
     return (torch.from_numpy(np.stack(imgs)).to(dev),
             torch.from_numpy(np.stack(lbls)).to(dev))
+
+
+def _slices_iter(cfg: ExperimentConfig, seed: int, batch_size: int):
+    """NCHW numpy batches of 2D slices in [-1, 1] for the GAN experiments:
+    the JAX package's channel-last batches, element for element, with the
+    channel axis moved to 1."""
+    rng = np.random.RandomState(seed)
+    h, w = cfg.spatial[:2]
+    while True:
+        out = []
+        for _ in range(batch_size):
+            img, _ = make_volume(rng, cfg.in_channels, (h, w, 4))
+            sl = img[:, :, :, rng.randint(0, 4)]
+            out.append(np.tanh(sl))  # squash into [-1, 1] like Tanh-generated data
+        yield np.stack(out).astype(np.float32)
+
+
+def _fid_reals(cfg: ExperimentConfig, seed: int):
+    """The fixed held-out real batches of every FID of a run (the curve's
+    and the final one)."""
+    data_it = _slices_iter(cfg, seed + 999, cfg.batch_size)
+    return [next(data_it) for _ in range(4)]
 
 
 def epoch_generator(base: int, epoch: int, device: DeviceLike = None) -> torch.Generator:
@@ -284,10 +306,11 @@ def _restore_chunked(ckpt, template, history, hist_path, resume, log, name,
     (state, start_epoch, history).
 
     Every history key must be declared: ``"epochs"`` (the validation
-    epochs), a per-epoch key, a per-step key, or a per-validation key (one
-    entry per element of ``"epochs"``, as the segmentation runner's
-    ``"dice"``). Any other key raises ``KeyError``: a guessed truncation
-    would silently corrupt it on resume.
+    epochs, or every epoch in a GAN run), ``"fid"`` with its
+    ``"fid_epochs"``, a per-epoch key, a per-step key, or a per-validation
+    key (one entry per element of ``"epochs"``, as the segmentation
+    runner's ``"dice"``). Any other key raises ``KeyError``: a guessed
+    truncation would silently corrupt it on resume.
     """
     start_epoch = 0
     state = template
@@ -299,9 +322,13 @@ def _restore_chunked(ckpt, template, history, hist_path, resume, log, name,
                 history = json.load(f)
         val_keep = [i for i, e in enumerate(history.get("epochs", []))
                     if e <= start_epoch]
+        fid_keep = [i for i, e in enumerate(history.get("fid_epochs", []))
+                    if e <= start_epoch]
         for k, v in history.items():
-            if k == "epochs":
+            if k in ("epochs", "fid_epochs"):
                 history[k] = [e for e in v if e <= start_epoch]
+            elif k == "fid":
+                history[k] = [v[i] for i in fid_keep]
             elif k in per_val_keys:
                 history[k] = [v[i] for i in val_keep]
             elif k in per_epoch_keys:
@@ -317,6 +344,174 @@ def _restore_chunked(ckpt, template, history, hist_path, resume, log, name,
     return state, start_epoch, history
 
 
+def _gan_states(cfg: ExperimentConfig, seed: int, dev: torch.device):
+    """The run's (G, D) :class:`~mvtb_tpu_torch.train.gan.GANState` pair:
+    the DCGAN pair for ``dcgan``, else the ReconGAN pair (width
+    ``gan_nf // 8``, G's global residual except for ``gibbs_gan``). G's
+    weights come from ``epoch_generator(seed, 0)``, D's from ``(seed, 1)``,
+    drawn on the host, so they do not depend on the device."""
+    from mvtb_tpu_torch.models import (Discriminator, Generator,
+                                       ResUnetDiscriminator, ResUnetGenerator)
+    from mvtb_tpu_torch.train.gan import create_gan_state
+
+    cpu = torch.device("cpu")
+    gg, gd = epoch_generator(seed, 0, cpu), epoch_generator(seed, 1, cpu)
+    if cfg.kind == "dcgan":
+        g = Generator(cfg.nz, cfg.gan_nf, cfg.in_channels, device=cpu, generator=gg)
+        d = Discriminator(cfg.in_channels, cfg.gan_nf, device=cpu, generator=gd)
+    else:
+        nf = max(cfg.gan_nf // 8, 2)
+        g = ResUnetGenerator(cfg.in_channels, nf, global_residual=cfg.kind != "gibbs_gan",
+                             device=cpu, generator=gg)
+        d = ResUnetDiscriminator(cfg.in_channels, nf, device=cpu, generator=gd)
+    d_lr = cfg.gan_lr if cfg.gan_d_lr is None else cfg.gan_d_lr
+    return (create_gan_state(g.to(dev), cfg.gan_lr, cfg.gan_beta1),
+            create_gan_state(d.to(dev), d_lr, cfg.gan_beta1))
+
+
+def _recon_kwargs(cfg: ExperimentConfig) -> dict:
+    """The ReconGAN step's statics for a GAN kind other than ``dcgan``."""
+    return dict(zf_p=cfg.zf_p, alpha=cfg.cyclic_alpha, gamma=cfg.cyclic_gamma,
+                freq_domain=cfg.kind in ("recon_gan_freq", "gibbs_gan"),
+                compress_kind="gibbs" if cfg.kind == "gibbs_gan" else "zf",
+                pre_corrupt_real=cfg.kind == "gibbs_gan", real_label=cfg.gan_real_label)
+
+
+def _final_fid(cfg: ExperimentConfig, g_state, d_state, fid_reals, dev) -> float:
+    """The DCGAN's frozen-encoder FID against the run's held-out reals, its
+    fakes from a generator seeded 777 (the JAX runner's ``key(777)``)."""
+    from mvtb_tpu_torch.eval.fid import dcgan_fid
+
+    return dcgan_fid(g_state.model, d_state.model, fid_reals,
+                     generator=torch.Generator(device=dev).manual_seed(777), nz=cfg.nz)
+
+
+def _run_gan(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int, seed: int,
+             log, dev: torch.device) -> Dict:
+    """Per-step GAN training on host batches of ``_slices_iter``; the
+    losses of an epoch are read once. DCGAN ends with its FID."""
+    from mvtb_tpu_torch.train.gan import dcgan_step, recon_gan_step, sample_recon_draws
+
+    g_state, d_state = _gan_states(cfg, seed, dev)
+    data_it = _slices_iter(cfg, seed, cfg.batch_size)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    history = {"g_loss": [], "d_loss": []}
+    for epoch in range(epochs):
+        rows = []
+        for _ in range(steps_per_epoch):
+            real = torch.from_numpy(next(data_it)).to(dev)
+            if cfg.kind == "dcgan":
+                z = torch.randn((real.shape[0], cfg.nz, 1, 1), generator=generator,
+                                device=dev)
+                m = dcgan_step(g_state, d_state, real, z, real_label=cfg.gan_real_label)
+            else:
+                kw = _recon_kwargs(cfg)
+                draws = sample_recon_draws(kw["compress_kind"], real.shape, generator, dev)
+                m = recon_gan_step(g_state, d_state, real, draws, **kw)
+            rows.append(torch.stack([m["g_loss"], m["d_loss"]]).float())
+        g_l, d_l = torch.stack(rows, dim=1).cpu().tolist()  # the epoch's one host read
+        history["g_loss"] += g_l
+        history["d_loss"] += d_l
+        log(f"[{cfg.name}] epoch {epoch + 1}/{epochs} "
+            f"G {history['g_loss'][-1]:.3f} D {history['d_loss'][-1]:.3f}")
+    result = {"history": history, "g_state": g_state, "d_state": d_state}
+    if cfg.kind == "dcgan":
+        result["fid"] = _final_fid(cfg, g_state, d_state, _fid_reals(cfg, seed), dev)
+        log(f"[{cfg.name}] frozen-encoder FID {result['fid']:.2f}")
+    return result
+
+
+def _run_gan_chunked(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
+                     seed: int, workdir: Optional[str], log, dev: torch.device,
+                     pool: int = 256, resume: bool = False,
+                     ckpt_every: Optional[int] = None) -> Dict:
+    """Reference-scale GAN training, one chunk (one host read) per epoch
+    over a slice pool on the card, with joint ``{"g", "d"}`` checkpoints
+    (the newest 3 kept) and resume.
+
+    Every ``ckpt_every`` epochs (default ``max(val_interval, 5)``) a DCGAN
+    run scores its FID (the curve ``history["fid"]`` at
+    ``history["fid_epochs"]``), then the checkpoint is saved; the history
+    is written every epoch. The result's ``timing`` holds host seconds:
+    ``pool_s``, ``restore_s`` (None on a fresh start), and per epoch or
+    cadence ``chunk_s`` (the chunk and its read), ``fid_s`` and ``save_s``.
+    """
+    t = time.perf_counter()
+    pool_arr = torch.from_numpy(next(_slices_iter(cfg, seed, pool))).to(dev)
+    timing = {"pool_s": time.perf_counter() - t, "restore_s": None,
+              "chunk_s": [], "fid_s": [], "save_s": []}
+    g_state, d_state = _gan_states(cfg, seed, dev)
+    if cfg.kind == "dcgan":
+        chunk_fn = make_dcgan_chunk_fn(cfg.nz, real_label=cfg.gan_real_label, device=dev)
+        curve_keys = DCGAN_CURVES
+    else:
+        chunk_fn = make_recon_gan_chunk_fn(**_recon_kwargs(cfg), device=dev)
+        curve_keys = RECON_CURVES
+
+    ckpt = None
+    hist_path = os.path.join(workdir, "history.json") if workdir else None
+    if workdir:
+        ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=3)
+    history = {k: [] for k in curve_keys}
+    history["epochs"] = []
+    t = time.perf_counter()
+    states, start_epoch, history = _restore_chunked(
+        ckpt, {"g": g_state, "d": d_state}, history, hist_path, resume, log,
+        cfg.name, steps_per_epoch, per_step_keys=tuple(curve_keys))
+    g_state, d_state = states["g"], states["d"]
+    if start_epoch:
+        timing["restore_s"] = time.perf_counter() - t
+
+    rng = np.random.RandomState(seed + 7)
+    for _ in range(start_epoch):
+        rng.randint(0, pool, (steps_per_epoch, cfg.batch_size))
+    fid_reals = None  # made at the first FID, then reused
+    every = ckpt_every or max(cfg.val_interval, 5)
+    t0 = time.perf_counter()
+    for epoch in range(start_epoch, epochs):
+        t = time.perf_counter()
+        idxs = torch.from_numpy(rng.randint(0, pool, (steps_per_epoch, cfg.batch_size)))
+        g_state, d_state, _, curves = chunk_fn(
+            g_state, d_state, epoch_generator(seed + 1, epoch, dev), pool_arr, idxs.to(dev))
+        curves = curves.cpu().tolist()  # the epoch's one host read
+        timing["chunk_s"].append(time.perf_counter() - t)
+        for k, row in zip(curve_keys, curves):
+            history[k] += row
+        history["epochs"].append(epoch + 1)
+        log(f"[{cfg.name}] epoch {epoch + 1}/{epochs} "
+            f"G {history['g_loss'][-1]:.3f} D {history['d_loss'][-1]:.3f} "
+            f"({(epoch + 1 - start_epoch) * steps_per_epoch / max(time.perf_counter() - t0, 1e-9):.1f} step/s)")
+        if (epoch + 1) % every == 0:
+            if cfg.kind == "dcgan":
+                t = time.perf_counter()
+                if fid_reals is None:
+                    fid_reals = _fid_reals(cfg, seed)
+                fid_now = _final_fid(cfg, g_state, d_state, fid_reals, dev)
+                timing["fid_s"].append(time.perf_counter() - t)
+                history.setdefault("fid", []).append(fid_now)
+                history.setdefault("fid_epochs", []).append(epoch + 1)
+                log(f"[{cfg.name}] epoch {epoch + 1} FID {fid_now:.2f}")
+            if ckpt is not None:
+                t = time.perf_counter()
+                ckpt.save(epoch + 1, {"g": g_state, "d": d_state})
+                timing["save_s"].append(time.perf_counter() - t)
+        if hist_path:
+            with open(hist_path, "w") as f:
+                json.dump(history, f)
+    if ckpt is not None:
+        ckpt.wait()
+        ckpt.close()
+
+    result = {"history": history, "g_state": g_state, "d_state": d_state,
+              "resumed_from": start_epoch, "timing": timing}
+    if cfg.kind == "dcgan":
+        if fid_reals is None:
+            fid_reals = _fid_reals(cfg, seed)
+        result["fid"] = _final_fid(cfg, g_state, d_state, fid_reals, dev)
+        log(f"[{cfg.name}] frozen-encoder FID {result['fid']:.2f}")
+    return result
+
+
 def run_domain_experiment(config: Union[str, ExperimentConfig], **kwargs) -> Dict:
     """Not ported yet: the hospital-domain protocol needs the data loaders
     and the evaluation harness."""
@@ -329,32 +524,40 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         steps_per_epoch: int = 8, seed: int = 0,
         workdir: Optional[str] = None, verbose: bool = True,
         val_batches: int = 12, chunked: bool = False, resume: bool = False,
-        pool: int = 48, fast: bool = False, device: DeviceLike = None) -> Dict:
-    """Run one segmentation experiment end to end; returns the history, the
-    best mean Dice and the final state (chunked runs also ``resumed_from``
-    and ``timing``).
+        pool: int = 48, fast: bool = False, device: DeviceLike = None,
+        ckpt_every: Optional[int] = None) -> Dict:
+    """Run one segmentation or GAN experiment end to end; returns the
+    history and the final state(s): a segmentation run's best mean Dice and
+    ``state``, a GAN run's ``g_state`` and ``d_state`` (and a DCGAN's
+    ``fid``); chunked runs also ``resumed_from`` and ``timing``.
 
     ``epochs`` overrides the config (the registry holds the reference's
     full training lengths). ``val_batches`` sizes the fixed held-out set.
     ``chunked=True`` runs one chunk (one host read) per epoch over a
     ``pool``-sample pool on the card; ``resume=True`` continues a chunked
-    run from the latest checkpoint in ``workdir``. ``fast=True`` applies
+    run from the latest checkpoint in ``workdir``. A chunked GAN run takes a
+    pool of at least 256 slices, and checkpoints (and, for DCGAN, scores
+    its FID) every ``ckpt_every`` epochs (default ``max(val_interval,
+    5)``). ``fast=True`` applies
     :func:`~mvtb_tpu_torch.experiments.registry.fast_science` (batch 16,
     ``plane_fast``). ``device=None`` means ``"cuda"`` and raises without a
     card.
 
     At ``workdir`` the run writes ``ckpt/`` (``{epoch}.pt`` and its
     metrics), ``history.json`` (chunked runs) and ``{name}_result.json``,
-    as the JAX package does. The two learning-curve PNGs come with
-    ``eval/plots.py`` (ROADMAP.md section 1, item 3): nothing on this path
-    imports matplotlib.
+    as the JAX package does. The learning-curve and GAN sample PNGs come
+    with ``eval/plots.py`` (ROADMAP.md section 1, item 3): nothing on this
+    path imports matplotlib.
 
     Random numbers: the sampling of pool rows is the JAX package's
     (``RandomState(seed + 7)`` in chunked runs, replayed up to a resume
     point); the stylization draws of epoch ``e`` come from
     :func:`epoch_generator` ``(seed, e)`` in training and ``(seed + 2, e)``
     in validation, and in per-step runs from one generator seeded
-    ``seed + 1``. The model is initialised from ``seed``.
+    ``seed + 1``. The model is initialised from ``seed``. A GAN run's pool
+    rows are drawn the same way; its z and compress draws of epoch ``e``
+    come from :func:`epoch_generator` ``(seed + 1, e)`` (chunked) or one
+    generator seeded ``seed + 1`` (per step).
 
     Float32 compute: the library sets no global PyTorch flag. With
     ``model_dtype="float32"`` on the card, cuDNN runs the convolutions at
@@ -369,7 +572,7 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         cfg = fast_science(cfg)
     if cfg.kind in _TODO_KINDS:
         raise NotImplementedError(f"experiment kind {cfg.kind!r}: {_TODO_KINDS[cfg.kind]}")
-    if cfg.kind != "segmentation":
+    if cfg.kind != "segmentation" and cfg.kind not in GAN_KINDS:
         raise ValueError(f"unknown experiment kind {cfg.kind}")
     dev = resolve_device(device)
     epochs = cfg.epochs if epochs is None else epochs
@@ -378,7 +581,13 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         os.makedirs(workdir, exist_ok=True)
 
     t0 = time.time()
-    if chunked:
+    if cfg.kind in GAN_KINDS and chunked:
+        result = _run_gan_chunked(cfg, steps_per_epoch, epochs, seed, workdir, log, dev,
+                                  pool=max(pool, 256), resume=resume,
+                                  ckpt_every=ckpt_every)
+    elif cfg.kind in GAN_KINDS:
+        result = _run_gan(cfg, steps_per_epoch, epochs, seed, log, dev)
+    elif chunked:
         result = _run_segmentation_chunked(cfg, steps_per_epoch, epochs, seed,
                                            workdir, log, dev,
                                            val_batches=val_batches, pool=pool,

@@ -15,6 +15,8 @@ Reference semantics come from the reference's
 
 from __future__ import annotations
 
+import numbers
+
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -228,5 +230,8 @@ def rand_zero_fill(x: torch.Tensor, p, generator: Optional[torch.Generator] = No
         if generator is None:
             raise ValueError("rand_zero_fill needs `generator` or a precomputed `u`.")
         u = _uniform(k.shape, x.dtype, generator, x.device)
-    keep = u.to(x.device) > torch.as_tensor(p, dtype=x.dtype).to(x.device)
+    # a number is compared as a scalar (in x's type, as the JAX package casts
+    # it): no host-to-device copy of it, which the card's stream would wait on
+    thr = p if isinstance(p, numbers.Real) else torch.as_tensor(p, dtype=x.dtype).to(x.device)
+    keep = u.to(x.device) > thr
     return ifft_shifted_real(k * keep.to(k.real.dtype), nd)

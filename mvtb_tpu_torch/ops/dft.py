@@ -320,3 +320,112 @@ def irdft_nd_real(x: torch.Tensor, s: Sequence[int], axes: Sequence[int],
 def use_matmul_dft(spatial: Sequence[int]) -> bool:
     """Matmul DFT for every axis within the bound."""
     return all(n <= MATMUL_DFT_MAX_N for n in spatial)
+
+
+# --------------------------------------------------------------------------
+# Hybrid per-axis backend: torch.fft on axes whose length is 2/3/5-smooth,
+# the matmul DFT at "highest" on the rest (the JAX package's hybrid_*; XLA's
+# TPU FFT only transforms innermost axes, so the JAX functions transpose the
+# smooth axes there first; torch.fft transforms any axis in place). The split
+# of the axes and the order of the passes are the JAX package's.
+# --------------------------------------------------------------------------
+
+def _smooth235(n: int) -> bool:
+    """True when ``n`` factors entirely into 2, 3 and 5."""
+    if n <= 0:
+        return False  # 0 % p == 0 forever
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def _split_smooth(shape, axes: Sequence[int]):
+    smooth = [a for a in axes if _smooth235(shape[a])]
+    return smooth, [a for a in axes if not _smooth235(shape[a])]
+
+
+def _fft_axes(re: torch.Tensor, im: Optional[torch.Tensor], axes: Sequence[int],
+              inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Complex (i)FFT over ``axes`` with ``torch.fft``, as an (re, im) pair."""
+    k = torch.complex(re, torch.zeros_like(re) if im is None else im)
+    k = (torch.fft.ifftn if inverse else torch.fft.fftn)(k, dim=tuple(axes))
+    return k.real.contiguous(), k.imag.contiguous()
+
+
+def hybrid_rdft_nd(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """The ``rfftn(x, axes=axes)`` contract with the per-axis hybrid backend
+    (half spectrum on the last of ``axes``)."""
+    axes = _axes(axes, x.ndim)
+    last = axes[-1]
+    smooth_lead, mat_lead = _split_smooth(x.shape, axes[:-1])
+    x = x.to(torch.float32)
+    if _smooth235(x.shape[last]):
+        if not mat_lead:
+            return torch.fft.rfftn(x, dim=tuple(axes))
+        k = torch.fft.rfft(x, dim=last)
+        re, im = k.real.contiguous(), k.imag.contiguous()
+    else:
+        cos, sin = device_mats("half", x.shape[last], False, x.device)
+        re, im = contract(x, cos, last), contract(x, sin, last)
+    for a in mat_lead:
+        re, im = _axis_dft(re, im, a, False)
+    if smooth_lead:
+        re, im = _fft_axes(re, im, smooth_lead, False)
+    return torch.complex(re, im)
+
+
+def hybrid_irdft_nd_real(x: torch.Tensor, s: Sequence[int],
+                         axes: Sequence[int]) -> torch.Tensor:
+    """The ``irfftn(x, s=s, axes=axes)`` contract with the per-axis hybrid
+    backend."""
+    axes = _axes(axes, x.ndim)
+    last = axes[-1]
+    n = int(s[-1])
+    smooth_lead, mat_lead = _split_smooth(x.shape, axes[:-1])
+    if _smooth235(n) and not mat_lead:
+        return torch.fft.irfftn(x, s=tuple(int(v) for v in s), dim=tuple(axes))
+    re, im = _parts(x)
+    if smooth_lead:
+        re, im = _fft_axes(re, im, smooth_lead, True)
+    for a in mat_lead:
+        re, im = _axis_dft(re, im, a, True)
+    if im is None:
+        im = torch.zeros_like(re)
+    if _smooth235(n):
+        return torch.fft.irfft(torch.complex(re, im), n=n, dim=last)
+    cos_t, sin_t = device_mats("half_inv", n, True, re.device)
+    return contract(re, cos_t, last) - contract(im, sin_t, last)
+
+
+def hybrid_dft_nd(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """The ``fftn(x, axes=axes)`` contract with the per-axis hybrid backend:
+    the matmul axes first, then one ``fftn`` over the smooth ones."""
+    axes = _axes(axes, x.ndim)
+    smooth, mat = _split_smooth(x.shape, axes)
+    re, im = _parts(x)
+    for a in mat:
+        re, im = _axis_dft(re, im, a, False)
+    if smooth:
+        re, im = _fft_axes(re, im, smooth, False)
+    return torch.complex(re, torch.zeros_like(re) if im is None else im)
+
+
+def hybrid_idft_nd_real(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Real part of the inverse n-D DFT with the per-axis hybrid backend: one
+    ``ifftn`` over the smooth axes, then the matmul axes, the last of them
+    the 2-product real-output contraction."""
+    axes = _axes(axes, x.ndim)
+    smooth, mat = _split_smooth(x.shape, axes)
+    re, im = _parts(x)
+    if smooth:
+        re, im = _fft_axes(re, im, smooth, True)
+    if not mat:
+        return re
+    for a in mat[:-1]:
+        re, im = _axis_dft(re, im, a, True)
+    cos, sin = device_mats("full", re.shape[mat[-1]], True, re.device)
+    out = contract(re, cos, mat[-1])
+    if im is not None:
+        out = out - contract(im, sin, mat[-1])
+    return out

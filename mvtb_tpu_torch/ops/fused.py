@@ -11,25 +11,31 @@ Two paths, as in the JAX package:
 
 * the plane backends (``"plane"``, ``"plane_fast"``) with a plane-eligible
   config run the fused plane kernel of :mod:`.fused_plane`;
-* everything else runs the general half-spectrum path, batched over B with
-  per-sample parameters broadcast: ``rfftn`` over (H, W, D) with the half
-  axis LAST (D) -> the multiplicative weights (Gibbs with its even-axis
-  mirror average, disk, wrap) -> the one-pass spike / plane-wave point
-  writes -> ``irfftn`` -> image-domain salt & pepper. Its backends are
-  ``"dft"`` / ``"dft_fast"`` (:mod:`.dft` on ``torch.matmul``),
-  ``"dft_pallas"`` (the hand-written axis kernels of :mod:`.pallas_dft`, at
-  their bf16x3 ``"high"`` tier, as the JAX package runs them) and
-  ``"xla"`` (``torch.fft``); ``"auto"`` picks ``"dft"`` on a CUDA device and
-  ``"xla"`` on the CPU.
+* everything else runs the general path, batched over B with per-sample
+  parameters broadcast, on ``(B, C, *spatial)`` with ``n_dims`` 2 or 3
+  spatial axes: the forward transform over the spatial axes -> the
+  multiplicative weights (Gibbs, disk, wrap) -> random zero-fill -> the
+  spike and plane-wave point writes (spike range explicit or from the
+  spectrum's log-magnitude mean) -> the inverse -> image-domain salt &
+  pepper. Every k-space config runs on the rfft half spectrum (half axis
+  LAST), whose Hermitian representation is the realified state; the
+  complex full-spectrum path stays behind the :func:`_rfft_eligible` seam.
+  Its backends are ``"dft"`` / ``"dft_fast"`` (:mod:`.dft` on
+  ``torch.matmul``), ``"dft_pallas"`` (the hand-written axis kernels of
+  :mod:`.pallas_dft`, at their bf16x3 ``"high"`` tier, as the JAX package
+  runs them), ``"hybrid"`` (``torch.fft`` on 2/3/5-smooth axes, the matmul
+  DFT on the rest) and ``"xla"`` (``torch.fft``); ``"auto"`` picks
+  ``"dft"`` on a CUDA device and ``"xla"`` on the CPU.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the zero-fill stage, the data-dependent spike range, the complex
-path, the ``"hybrid"`` backend and ``n_dims=2``.
+The point writes run in the JAX package's sequential form (each write reads
+the spectrum the stages before it left); without zero-fill the JAX package
+fuses them into one pass, which computes the same values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -40,9 +46,6 @@ from mvtb_tpu_torch.ops.corruptions import sap_select
 from mvtb_tpu_torch.ops.masks import shell_flat_indices
 
 ParamSpec = Union[float, Tuple[float, float]]  # fixed value or U[lo,hi] range
-
-# Where the not-yet-ported paths are queued (ROADMAP.md, section 1).
-_TODO_FUSED = "ROADMAP.md section 1, item 2 (fused stylization, the rest)"
 
 BACKENDS = ("xla", "dft", "dft_fast", "hybrid", "dft_pallas", "plane",
             "plane_fast")
@@ -106,19 +109,41 @@ def _to_raw_index(shifted_idx, n: int):
     return (shifted_idx - n // 2) % n
 
 
+def _rfft_eligible(cfg: StylizeConfig, spatial) -> bool:
+    """True when the k-space part runs on the rfft half spectrum: every
+    k-space stage does. The JAX package's seam of the same name: tests patch
+    it to False to drive the complex full-spectrum path. Keep it a
+    module-level function."""
+    del spatial
+    return cfg.kspace_needed
+
+
+def _stored_grid(spatial, use_rfft: bool) -> Tuple[int, ...]:
+    """The spectrum's stored shape: the half grid (last axis n//2 + 1) on
+    the rfft path, the full grid on the complex one."""
+    spatial = tuple(int(n) for n in spatial)
+    return spatial[:-1] + (spatial[-1] // 2 + 1,) if use_rfft else spatial
+
+
 @dataclasses.dataclass
 class StageDraws:
     """The raw per-sample random draws of one stylize call, batched over B.
 
-    A field is None when its stage is off. Shapes (B samples, C channels):
+    A field is None when its stage is off. Shapes (B samples, C channels,
+    nd spatial axes):
 
     * ``gibbs_alpha``, ``disk_r``, ``wrap_alpha``, ``sap_p``: (B,) float32;
-    * ``gibbs_gate``, ``disk_gate``, ``wrap_gate``, ``plane_gate``,
-      ``sap_gate``: (B,) bool;
-    * ``spike_shifted``: (B, C, 3) int, fftshifted-space spike locations;
-      ``spike_vals``: (B, C) float32 log-magnitudes (before ``exp``);
-      ``spike_gates``: (B, C) bool;
-    * ``plane_shifted``: (B, 3) int, shifted-space location on the shell;
+    * ``gibbs_gate``, ``disk_gate``, ``wrap_gate``, ``zf_gate``,
+      ``plane_gate``, ``sap_gate``: (B,) bool;
+    * ``zf_u``: (B, C, *grid) float32 uniforms of zero-fill on the stored
+      grid (the half grid on the rfft path); ``zf_u2``: the second field of
+      the half grid's off-grid mirrors (None on the complex path);
+    * ``spike_shifted``: (B, C, nd) int, fftshifted-space spike locations;
+      ``spike_u``: (B, C) float32 uniforms of the spike's log-magnitude in
+      its range (explicit, or from the spectrum); ``spike_gates``: (B, C)
+      bool;
+    * ``plane_shifted``: (B, nd) int, shifted-space location on the shell
+      (in 2D the ellipse of the first two semi-axes, as in the JAX package);
     * ``sap_u``: (B, C, *spatial) float32 uniforms of salt & pepper.
     """
 
@@ -128,8 +153,11 @@ class StageDraws:
     disk_gate: Optional[torch.Tensor] = None
     wrap_alpha: Optional[torch.Tensor] = None
     wrap_gate: Optional[torch.Tensor] = None
+    zf_u: Optional[torch.Tensor] = None
+    zf_u2: Optional[torch.Tensor] = None
+    zf_gate: Optional[torch.Tensor] = None
     spike_shifted: Optional[torch.Tensor] = None
-    spike_vals: Optional[torch.Tensor] = None
+    spike_u: Optional[torch.Tensor] = None
     spike_gates: Optional[torch.Tensor] = None
     plane_shifted: Optional[torch.Tensor] = None
     plane_gate: Optional[torch.Tensor] = None
@@ -155,12 +183,14 @@ def sample_draws(cfg: StylizeConfig, spatial, B: int, C: int,
     """Draw every random stage parameter for a (B, C, *spatial) batch.
 
     The distributions are the JAX package's (uniform parameters, Bernoulli
-    gates, uniform spike locations, a uniform pick on the ellipsoid shell);
-    the numbers differ, since the generator differs. ``generator`` must live
-    on ``device``; None uses PyTorch's default generator there.
+    gates, uniform spike locations, a uniform pick on the ellipsoid shell,
+    uniform zero-fill fields on the stored grid); the numbers differ, since
+    the generator differs. ``generator`` must live on ``device``; None uses
+    PyTorch's default generator there.
     """
     dev = resolve_device(device)
     spatial = tuple(int(n) for n in spatial)
+    nd = len(spatial)
 
     def uniform(shape):
         return torch.rand(shape, generator=generator, device=dev)
@@ -182,24 +212,29 @@ def sample_draws(cfg: StylizeConfig, spatial, B: int, C: int,
         d.disk_r, d.disk_gate = param(cfg.disk_r), gate(cfg.disk_prob)
     if cfg.wrap_alpha is not None:
         d.wrap_alpha, d.wrap_gate = param(cfg.wrap_alpha), gate(cfg.wrap_prob)
+    if cfg.zf_p is not None:
+        use_rfft = _rfft_eligible(cfg, spatial)
+        field = (B, C) + _stored_grid(spatial, use_rfft)
+        d.zf_u = uniform(field)
+        d.zf_u2 = uniform(field) if use_rfft else None
+        d.zf_gate = gate(cfg.zf_prob)
     if cfg.spike:
-        if cfg.spike_range is None:
-            raise NotImplementedError(
-                "data-dependent spike range: " + _TODO_FUSED)
-        lo, hi = cfg.spike_range
         width = C if cfg.spike_channel_wise else 1
         locs = torch.stack([
             torch.randint(0, n, (B, width), generator=generator, device=dev)
             for n in spatial], dim=-1)
-        vals = lo + (hi - lo) * uniform((B, width))
+        u = uniform((B, width))
         gates = (uniform((B, width)) < cfg.spike_prob if cfg.spike_channel_wise
                  else gate(cfg.spike_prob)[:, None])
-        d.spike_shifted = locs.expand(B, C, 3)
-        d.spike_vals = vals.expand(B, C)
+        d.spike_shifted = locs.expand(B, C, nd)
+        d.spike_u = u.expand(B, C)
         d.spike_gates = gates.expand(B, C)
     if cfg.plane_axes is not None:
         flat = torch.from_numpy(
             shell_flat_indices(spatial, *map(float, cfg.plane_axes))).to(dev)
+        if flat.numel() == 0:
+            raise ValueError(f"the plane-wave shell {cfg.plane_axes} holds no "
+                             f"point of the {spatial} grid")
         pick = torch.randint(0, flat.numel(), (B,), generator=generator,
                              device=dev)
         d.plane_shifted = torch.stack(
@@ -209,6 +244,24 @@ def sample_draws(cfg: StylizeConfig, spatial, B: int, C: int,
         d.sap_p, d.sap_gate = param(cfg.sap_p), gate(cfg.sap_prob)
         d.sap_u = uniform((B, C) + spatial)
     return d
+
+
+def spike_log_values(cfg: StylizeConfig, draws: StageDraws,
+                     means: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, C) float32 spike log-magnitudes ``lo + (hi - lo) * u``: the range
+    is ``cfg.spike_range``, or ``0.95 * means`` to ``1.10 * means`` for the
+    data-dependent default (``means`` the (B, C) log-magnitude means of the
+    weighted spectrum). The same float32 arithmetic as the JAX package."""
+    draws.require("spike_u")
+    u = draws.spike_u.to(torch.float32)
+    if cfg.spike_range is None:
+        if means is None:
+            raise ValueError("the data-dependent spike range needs the spectrum's means")
+        lo, hi = means * 0.95, means * 1.10
+    else:
+        lo, hi = (torch.tensor(v, dtype=torch.float32, device=u.device)
+                  for v in cfg.spike_range)
+    return lo + (hi - lo) * u
 
 
 def _resolve_backend(backend: str, spatial, device: DeviceLike) -> str:
@@ -228,29 +281,6 @@ def _resolve_backend(backend: str, spatial, device: DeviceLike) -> str:
     return "xla"
 
 
-def _rfft_eligible(cfg: StylizeConfig, spatial) -> bool:
-    """True when the k-space part runs on the rfft half spectrum: every
-    k-space stage does (the JAX package's seam of the same name; its
-    complex path is not ported)."""
-    del spatial
-    return cfg.kspace_needed
-
-
-def _check_general(cfg: StylizeConfig, spatial, backend: str) -> None:
-    """Raise for what the general path does not implement yet."""
-    if backend == "hybrid":
-        raise NotImplementedError(
-            "fft_backend='hybrid' (per-axis torch.fft / matmul DFT): " + _TODO_FUSED)
-    if cfg.zf_p is not None:
-        raise NotImplementedError(
-            "the zero-fill stage (zf_p) with its pair-iid rule: " + _TODO_FUSED)
-    if cfg.spike and cfg.spike_range is None:
-        raise NotImplementedError(
-            "data-dependent spike range (spike_range=None): " + _TODO_FUSED)
-    if cfg.kspace_needed and not _rfft_eligible(cfg, spatial):
-        raise NotImplementedError("the complex (full-spectrum) path: " + _TODO_FUSED)
-
-
 def _salt_and_pepper(out: torch.Tensor, draws: StageDraws) -> torch.Tensor:
     """Image-domain salt & pepper with per-sample extrema over (C, *spatial)."""
     draws.require("sap_p", "sap_gate", "sap_u")
@@ -265,40 +295,66 @@ def _salt_and_pepper(out: torch.Tensor, draws: StageDraws) -> torch.Tensor:
     return sap_select(out, draws.sap_u, p, lo, hi)
 
 
-def _forward(x: torch.Tensor, backend: str):
-    """(re, im) of ``rfftn`` over the three spatial axes, half axis last."""
-    axes = (2, 3, 4)
+def _pair(k: torch.Tensor):
+    return k.real.contiguous(), k.imag.contiguous()
+
+
+def _forward(x: torch.Tensor, backend: str, nd: int, use_rfft: bool):
+    """(re, im) of ``rfftn`` (half axis last) or ``fftn`` over the ``nd``
+    spatial axes of a (B, C, *spatial) batch."""
+    axes = tuple(range(2, 2 + nd))
     if backend == "xla":
-        k = torch.fft.rfftn(x.to(torch.float32), dim=axes)
-        return k.real.contiguous(), k.imag.contiguous()
+        f = torch.fft.rfftn if use_rfft else torch.fft.fftn
+        return _pair(f(x.to(torch.float32), dim=axes))
+    if backend == "hybrid":
+        f = _dft.hybrid_rdft_nd if use_rfft else _dft.hybrid_dft_nd
+        return _pair(f(x, axes))
     if backend == "dft_pallas":
         from mvtb_tpu_torch.ops import pallas_dft as _pdft
 
-        return _pdft.rdft_nd_pair(x, axes, "high")
-    return _dft.rdft_nd_pair(x, axes, "default" if backend == "dft_fast"
-                             else "highest")
+        if use_rfft:
+            return _pdft.rdft_nd_pair(x, axes, "high")
+        return _pair(_pdft.dft_nd(x, axes, "high"))
+    precision = "default" if backend == "dft_fast" else "highest"
+    if use_rfft:
+        return _dft.rdft_nd_pair(x, axes, precision)
+    return _pair(_dft.dft_nd(x, axes, precision))
 
 
-def _inverse(re: torch.Tensor, im: torch.Tensor, spatial, backend: str):
-    """``irfftn`` of the (re, im) half spectrum back to a real volume."""
-    axes = (2, 3, 4)
+def _inverse(re: torch.Tensor, im: torch.Tensor, spatial, backend: str,
+             use_rfft: bool):
+    """The real volume back from the (re, im) spectrum: ``irfftn`` of the
+    half spectrum, or the real part of ``ifftn`` of the full one."""
+    axes = tuple(range(2, 2 + len(spatial)))
     if backend == "xla":
-        return torch.fft.irfftn(torch.complex(re, im), s=spatial, dim=axes)
+        k = torch.complex(re, im)
+        if use_rfft:
+            return torch.fft.irfftn(k, s=spatial, dim=axes)
+        return torch.fft.ifftn(k, dim=axes).real
+    if backend == "hybrid":
+        k = torch.complex(re, im)
+        if use_rfft:
+            return _dft.hybrid_irdft_nd_real(k, spatial, axes)
+        return _dft.hybrid_idft_nd_real(k, axes)
     if backend == "dft_pallas":
         from mvtb_tpu_torch.ops import pallas_dft as _pdft
 
-        return _pdft.irdft_nd_real_pair(re, im, spatial, axes, "high")
-    return _dft.irdft_nd_real_pair(re, im, spatial, axes,
-                                   "default" if backend == "dft_fast" else "highest")
+        if use_rfft:
+            return _pdft.irdft_nd_real_pair(re, im, spatial, axes, "high")
+        return _pdft.idft_nd_real(torch.complex(re, im), axes, "high")
+    precision = "default" if backend == "dft_fast" else "highest"
+    if use_rfft:
+        return _dft.irdft_nd_real_pair(re, im, spatial, axes, precision)
+    return _dft.idft_nd_real(torch.complex(re, im), axes, precision)
 
 
-def _weight_parts(cfg: StylizeConfig, spatial, draws: StageDraws):
+def _weight_parts(cfg: StylizeConfig, spatial, draws: StageDraws, sym: bool):
     """The multiplicative weight stages as callables ``part(idx, view)``:
-    ``idx`` holds per-axis integer index tensors (a broadcast grid, or
-    (B, C) point locations) and ``view`` the shape that broadcasts a (B,)
-    parameter against them. The same float32 arithmetic in the same order
-    as the JAX package's ``gibbs_part`` / ``disk_part`` / ``wrap_part``, so
-    the grid weight and the weight at a point agree bit for bit. Returns
+    ``idx`` holds per-axis integer index tensors (a broadcast grid) and
+    ``view`` the shape that broadcasts a (B,) parameter against them. The
+    same float32 arithmetic in the same order as the JAX package's
+    ``gibbs_part`` / ``disk_part`` / ``wrap_part``. ``sym`` (the half
+    spectrum) gives the Gibbs mask its even-axis mirror average. Returns
     ``(parts, wrap_val)``, ``wrap_val`` the gated (B,) wrap alpha or None."""
     f32 = torch.float32
     nd = len(spatial)
@@ -314,7 +370,7 @@ def _weight_parts(cfg: StylizeConfig, spatial, draws: StageDraws):
         r_g = (1.0 - draws.gibbs_alpha.to(f32)) * max(spatial) * (2.0 ** 0.5) / 2.0
         r2_g = r_g * r_g
         g_g = draws.gibbs_gate
-        sym = any(d != 0 for d in deltas)
+        sym = sym and any(d != 0 for d in deltas)
 
         def gibbs_part(idx, view):
             dist = None
@@ -390,22 +446,113 @@ def _weight_of(parts, idx, view):
     return w
 
 
+def zero_fill_weight(zf_u: torch.Tensor, zf_u2: Optional[torch.Tensor],
+                     p: float, spatial) -> torch.Tensor:
+    """The zero-fill stage's multiplicative weight on the stored grid (ungated),
+    from the stage's uniform fields.
+
+    Complex path (``zf_u2`` None): ``keep = u > p``. Half spectrum: the
+    realified full-grid weight at a conjugate pair is ``(b_i + b_{-i}) / 2``
+    with iid Bernoulli keeps. Interior bins pair with an off-grid mirror,
+    whose keep is the second field; bins whose last index is self-mirrored
+    (0, and n/2 for even n) pair within the slab at the other axes' mirrored
+    position, ``roll(flip(b, ax), 1, ax)`` over every other spatial axis
+    (the index-space form of the Gibbs mask's offset mirror); a fully
+    self-paired point degenerates to its single draw."""
+    f32 = torch.float32
+    b1 = (zf_u > p).to(f32)
+    if zf_u2 is None:
+        return b1
+    b2 = (zf_u2 > p).to(f32)
+    nd = len(spatial)
+    b1m = b1
+    for ax in range(b1.ndim - nd, b1.ndim - 1):
+        b1m = torch.roll(torch.flip(b1m, (ax,)), 1, ax)
+    n_last = int(spatial[-1])
+    h = torch.arange(b1.shape[-1], device=b1.device)
+    h_self = (h == 0) | ((n_last % 2 == 0) & (h == n_last // 2))
+    return torch.where(h_self, (b1 + b1m) * 0.5, (b1 + b2) * 0.5)
+
+
+def _log_magnitude_means(re: torch.Tensor, im: torch.Tensor, spatial,
+                         use_rfft: bool) -> torch.Tensor:
+    """(B, C) means over the full grid of ``log(|k| + 1e-10)``. From the half
+    spectrum, interior last-axis bins stand for two points of the full grid
+    (|k| at a point equals |k| at its mirror): weights 1, 2, ..., 2, 1 (the
+    last 1 only for even n), over the full grid's size."""
+    axes = tuple(range(2, re.ndim))
+    logmag = torch.log(torch.hypot(re, im) + 1e-10)
+    if not use_rfft:
+        return logmag.mean(dim=axes)
+    w_last = torch.full((re.shape[-1],), 2.0, dtype=torch.float32, device=re.device)
+    w_last[0] = 1.0
+    if spatial[-1] % 2 == 0:
+        w_last[-1] = 1.0
+    return (logmag * w_last).sum(dim=axes) / float(math.prod(spatial))
+
+
+def _point_update(re: torch.Tensor, im: torch.Tensor, spatial, use_rfft: bool,
+                  raw: torch.Tensor, mag: torch.Tensor, gates: torch.Tensor):
+    """Set ``|k|`` to ``mag`` (keeping its phase) at the (B, C, nd) raw
+    full-grid points ``raw`` where the (B, C) ``gates`` allow: the JAX
+    package's sequential ``point_update``.
+
+    Each point is read from the spectrum as it stands, an exact zero read as
+    +0 (the JAX read is a masked sum, whose +0 filler folds -0, whose phase
+    would be pi). Complex path: a select write (set semantics). Half
+    spectrum: the realified write ``H[c] += (w - k[s]) * scale`` at the
+    point's canonical half-grid representative ``c`` (a point in the dropped
+    half mirrors through ``-s mod n``, its read and delta conjugated), scale
+    1 on the self-mirrored last-axis bins (0 and n/2), else 1/2."""
+    B, C = re.shape[:2]
+    nd = len(spatial)
+    dev = re.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    if use_rfft:
+        in_half = raw[..., -1] < spatial[-1] // 2 + 1
+        locs = torch.stack([torch.where(in_half, raw[..., d],
+                                        (spatial[d] - raw[..., d]) % spatial[d])
+                            for d in range(nd)], dim=-1)
+    else:
+        locs = raw
+    idx = ((torch.arange(B, device=dev)[:, None], torch.arange(C, device=dev)[None, :])
+           + tuple(locs[..., d] for d in range(nd)))
+    r, i = re[idx], im[idx]
+    both0 = (r == 0) & (i == 0)
+    r, i = torch.where(both0, zero, r), torch.where(both0, zero, i)
+    if not use_rfft:
+        ang = torch.atan2(i, r)
+        new_re = torch.where(gates, mag * torch.cos(ang), re[idx])
+        new_im = torch.where(gates, mag * torch.sin(ang), im[idx])
+        return re.index_put(idx, new_re), im.index_put(idx, new_im)
+    old_im = torch.where(in_half, i, -i)
+    ang = torch.atan2(old_im, r)
+    z_self = (locs[..., -1] == 0) | (2 * locs[..., -1] == spatial[-1])
+    scale = torch.where(z_self, one, 0.5 * one)
+    d_re = (mag * torch.cos(ang) - r) * scale
+    d_im = (mag * torch.sin(ang) - old_im) * scale
+    d_im = torch.where(in_half, d_im, -d_im)
+    d_re, d_im = torch.where(gates, d_re, zero), torch.where(gates, d_im, zero)
+    return (re.index_put(idx, d_re, accumulate=True),
+            im.index_put(idx, d_im, accumulate=True))
+
+
 def _stylize_general(x: torch.Tensor, cfg: StylizeConfig, draws: StageDraws,
                      backend: str) -> torch.Tensor:
-    """The general half-spectrum path of ``stylize_kspace`` on a
-    (B, C, H, W, D) batch (JAX: mvtb_tpu/ops/fused.py, the ``use_rfft``
-    branch with its one-pass point writes)."""
+    """The general path of ``stylize_kspace`` on a (B, C, *spatial) batch
+    (JAX: mvtb_tpu/ops/fused.py, the rfft and complex branches)."""
     B, C = x.shape[:2]
     spatial = tuple(int(n) for n in x.shape[2:])
     nd = len(spatial)
     dev = x.device
+    f32 = torch.float32
     out = x
     if cfg.kspace_needed:
-        re, im = _forward(x, backend)
-        grid = spatial[:-1] + (spatial[-1] // 2 + 1,)
-        parts, wrap_val = _weight_parts(cfg, spatial, draws)
-        deltas = (_point_deltas(cfg, spatial, grid, draws, parts, wrap_val, re, im)
-                  if cfg.spike or cfg.plane_axes is not None else [])
+        use_rfft = _rfft_eligible(cfg, spatial)
+        re, im = _forward(x, backend, nd, use_rfft)
+        grid = _stored_grid(spatial, use_rfft)
+        parts, wrap_val = _weight_parts(cfg, spatial, draws, sym=use_rfft)
         if parts:
             iotas = tuple(torch.arange(n, device=dev).view(
                 tuple(n if a == d else 1 for a in range(nd)))
@@ -413,104 +560,48 @@ def _stylize_general(x: torch.Tensor, cfg: StylizeConfig, draws: StageDraws,
             w = _weight_of(parts, iotas, (B,) + (1,) * nd)
             w = w.expand((B,) + grid)[:, None]
             re, im = re * w, im * w
-        bi = torch.arange(B, device=dev)[:, None]
-        ci = torch.arange(C, device=dev)[None, :]
-        for locs, d_re, d_im in deltas:  # spike, then plane wave
-            idx = (bi, ci) + tuple(locs[..., d] for d in range(nd))
-            re = re.index_put(idx, d_re, accumulate=True)
-            im = im.index_put(idx, d_im, accumulate=True)
-        out = _inverse(re, im, spatial, backend).to(x.dtype)
+        if cfg.zf_p is not None:
+            draws.require("zf_u", "zf_gate")
+            if use_rfft:
+                draws.require("zf_u2")
+            w_zf = zero_fill_weight(draws.zf_u, draws.zf_u2 if use_rfft else None,
+                                    cfg.zf_p, spatial)
+            gate = draws.zf_gate.view((B,) + (1,) * (nd + 1))
+            w_zf = torch.where(gate, w_zf, torch.ones((), dtype=f32, device=dev))
+            re, im = re * w_zf, im * w_zf
+
+        one = torch.ones((), dtype=f32, device=dev)
+
+        def wrap_at(shifted):  # (B, C, nd) shifted-space points
+            f = one
+            if wrap_val is None:
+                return f
+            for d in range(nd):
+                f = f * torch.where(shifted[..., d] % 2 == 1, wrap_val[:, None], one)
+            return f
+
+        def to_raw(shifted):
+            return torch.stack([_to_raw_index(shifted[..., d], spatial[d])
+                                for d in range(nd)], dim=-1)
+
+        if cfg.spike:
+            draws.require("spike_shifted", "spike_u", "spike_gates")
+            means = (_log_magnitude_means(re, im, spatial, use_rfft)
+                     if cfg.spike_range is None else None)
+            sh = draws.spike_shifted.long()
+            mag = torch.exp(spike_log_values(cfg, draws, means)) * wrap_at(sh)
+            re, im = _point_update(re, im, spatial, use_rfft, to_raw(sh), mag,
+                                   draws.spike_gates)
+        if cfg.plane_axes is not None:
+            draws.require("plane_shifted", "plane_gate")
+            sh = draws.plane_shifted.long()[:, None, :].expand(B, C, nd)
+            mag = torch.exp(torch.tensor(cfg.plane_intensity, dtype=f32, device=dev))
+            re, im = _point_update(re, im, spatial, use_rfft, to_raw(sh),
+                                   mag * wrap_at(sh),
+                                   draws.plane_gate[:, None].expand(B, C))
+        out = _inverse(re, im, spatial, backend, use_rfft).to(x.dtype)
     if cfg.sap_p is not None:
         out = _salt_and_pepper(out, draws)
-    return out
-
-
-def _point_deltas(cfg: StylizeConfig, spatial, grid, draws: StageDraws,
-                  parts, wrap_val, re: torch.Tensor, im: torch.Tensor):
-    """The spike and plane-wave writes as ``[(locs, d_re, d_im), ...]`` in
-    stage order: (B, C, 3) canonical half-grid points and the (B, C) deltas
-    to add there. Every point is read from the RAW spectrum and weighted
-    with the grid weight's own arithmetic at that point; the plane wave
-    reads what a spike at the same point of the same channel wrote."""
-    B, C = re.shape[:2]
-    nd = len(spatial)
-    f32 = torch.float32
-    dev = re.device
-    one = torch.ones((), dtype=f32, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
-    bi = torch.arange(B, device=dev)[:, None]
-    ci = torch.arange(C, device=dev)[None, :]
-
-    def wrap_at(shifted):  # (B, C, 3) shifted-space points
-        f = one
-        if wrap_val is None:
-            return f
-        for d in range(nd):
-            f = f * torch.where(shifted[..., d] % 2 == 1, wrap_val[:, None], one)
-        return f
-
-    def to_raw(shifted):
-        return torch.stack([_to_raw_index(shifted[..., d], spatial[d])
-                            for d in range(nd)], dim=-1)
-
-    def canon(raw):
-        """Raw full-grid points -> the stored half grid: a point whose last
-        index lies in the dropped half mirrors through ``-s mod n``."""
-        in_half = raw[..., -1] < grid[-1]
-        locs = torch.stack([torch.where(in_half, raw[..., d],
-                                        (spatial[d] - raw[..., d]) % spatial[d])
-                            for d in range(nd)], dim=-1)
-        return locs, in_half
-
-    def read(locs):
-        """Weighted spectrum at the points; an exact zero reads as +0
-        (JAX's ``canon_zero``: the phase of -0 would be pi)."""
-        idx = (bi, ci) + tuple(locs[..., d] for d in range(nd))
-        r, i = re[idx], im[idx]
-        if parts:
-            wa = _weight_of(parts, tuple(locs[..., d] for d in range(nd)), (B, 1))
-            r, i = r * wa, i * wa
-        both0 = (r == 0) & (i == 0)
-        return torch.where(both0, zero, r), torch.where(both0, zero, i)
-
-    def delta(r, i, locs, in_half, mag, gates):
-        """``H[c] += (w - k[s]) * scale``: ``k[s]`` is the read, conjugated
-        for a mirrored point; ``w`` has magnitude ``mag`` and the phase of
-        ``k[s]``; scale 1 on the self-mirrored last-axis bins (0 and n/2),
-        else 1/2; the delta is conjugated back for a mirrored point."""
-        old_re, old_im = r, torch.where(in_half, i, -i)
-        ang = torch.atan2(old_im, old_re)
-        new_re, new_im = mag * torch.cos(ang), mag * torch.sin(ang)
-        z_self = (locs[..., -1] == 0) | (2 * locs[..., -1] == spatial[-1])
-        scale = torch.where(z_self, one, 0.5 * one)
-        d_re = (new_re - old_re) * scale
-        d_im = (new_im - old_im) * scale
-        d_im = torch.where(in_half, d_im, -d_im)
-        return torch.where(gates, d_re, zero), torch.where(gates, d_im, zero)
-
-    out = []
-    spike = None
-    if cfg.spike:
-        draws.require("spike_shifted", "spike_vals", "spike_gates")
-        sh = draws.spike_shifted.long()
-        locs, in_half = canon(to_raw(sh))
-        mag = torch.exp(draws.spike_vals.to(f32)) * wrap_at(sh)
-        d_re, d_im = delta(*read(locs), locs, in_half, mag, draws.spike_gates)
-        spike = (locs, d_re, d_im)
-        out.append(spike)
-    if cfg.plane_axes is not None:
-        draws.require("plane_shifted", "plane_gate")
-        sh = draws.plane_shifted.long()[:, None, :].expand(B, C, nd)
-        locs, in_half = canon(to_raw(sh))
-        mag = torch.exp(torch.tensor(cfg.plane_intensity, dtype=f32, device=dev))
-        mag = mag * wrap_at(sh)
-        r, i = read(locs)
-        if spike is not None:
-            coll = (locs == spike[0]).all(dim=-1)
-            r = r + torch.where(coll, spike[1], zero)
-            i = i + torch.where(coll, spike[2], zero)
-        gates = draws.plane_gate[:, None].expand(B, C)
-        out.append((locs, *delta(r, i, locs, in_half, mag, gates)))
     return out
 
 
@@ -518,7 +609,8 @@ def stylize_batch(x: torch.Tensor, cfg: StylizeConfig,
                   draws: Optional[StageDraws] = None,
                   generator: Optional[torch.Generator] = None,
                   device: DeviceLike = None) -> torch.Tensor:
-    """Apply the configured corruption stack to a ``(B, C, *spatial)`` batch.
+    """Apply the configured corruption stack to a ``(B, C, *spatial)`` batch,
+    ``len(spatial) == cfg.n_dims``.
 
     ``draws`` fixes every random parameter; without it they are drawn with
     :func:`sample_draws` from ``generator``. ``device=None`` means
@@ -526,8 +618,6 @@ def stylize_batch(x: torch.Tensor, cfg: StylizeConfig,
     """
     dev = resolve_device(device)
     nd = cfg.n_dims
-    if nd != 3:
-        raise NotImplementedError(f"n_dims={nd} (2D stylization): " + _TODO_FUSED)
     x = x.to(dev)
     if x.ndim != nd + 2:
         raise ValueError(
@@ -536,20 +626,17 @@ def stylize_batch(x: torch.Tensor, cfg: StylizeConfig,
         return x
     spatial = tuple(x.shape[2:])
     backend = _resolve_backend(cfg.fft_backend, spatial, dev)
+    if draws is None:
+        draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
+                             generator=generator, device=dev)
+    draws = draws.to(dev)
     if backend in ("plane", "plane_fast"):
         from mvtb_tpu_torch.ops import fused_plane
 
         if fused_plane.plane_kernel_eligible(cfg, spatial):
-            if draws is None:
-                draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
-                                     generator=generator, device=dev)
-            return fused_plane.stylize_kspace_plane(x, cfg, draws.to(dev))
+            return fused_plane.stylize_kspace_plane(x, cfg, draws)
         backend = "dft_fast" if backend == "plane_fast" else "dft"
-    _check_general(cfg, spatial, backend)
-    if draws is None:
-        draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
-                             generator=generator, device=dev)
-    return _stylize_general(x, cfg, draws.to(dev), backend)
+    return _stylize_general(x, cfg, draws, backend)
 
 
 def stylize_kspace(x: torch.Tensor, cfg: StylizeConfig,

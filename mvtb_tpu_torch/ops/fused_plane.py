@@ -35,7 +35,8 @@ import torch
 from mvtb_tpu_torch.ops import dft as _dft
 from mvtb_tpu_torch.ops.dft import split_bf16  # noqa: F401  (the plane tiers' split, re-exported)
 from mvtb_tpu_torch.ops.fused import (StageDraws, StylizeConfig, _off_of,
-                                      _salt_and_pepper, _to_raw_index)
+                                      _salt_and_pepper, _to_raw_index,
+                                      spike_log_values)
 
 # Bits of the kernel's ``flags`` argument (csrc/fused_plane.cu).
 _F_GIBBS, _F_GIBBS_SYM, _F_DISK, _F_INSIDE_OFF, _F_WRAP = 1, 2, 4, 8, 16
@@ -408,11 +409,11 @@ def plane_params(cfg: StylizeConfig, spatial, draws: StageDraws, B: int,
 
     stages = []  # (raw (B, C, 3), vals (B, C), gates (B, C))
     if cfg.spike:
-        draws.require("spike_shifted", "spike_vals", "spike_gates")
+        draws.require("spike_shifted", "spike_u", "spike_gates")
         sh = draws.spike_shifted.long()
         raw = torch.stack([_to_raw_index(sh[..., d], spatial[d])
                            for d in range(nd)], dim=-1)
-        stages.append((raw, torch.exp(draws.spike_vals.to(f32)) * wrap_at(sh),
+        stages.append((raw, torch.exp(spike_log_values(cfg, draws)) * wrap_at(sh),
                        draws.spike_gates.to(f32)))
     if cfg.plane_axes is not None:
         draws.require("plane_shifted", "plane_gate")

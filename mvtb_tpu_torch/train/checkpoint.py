@@ -1,8 +1,11 @@
 """Full-state checkpoints over ``torch.save`` (counterpart of
 mvtb_tpu/train/checkpoint.py, which wraps orbax).
 
-A checkpoint holds the whole :class:`~mvtb_tpu_torch.train.seg.SegState`:
-the model's ``state_dict``, the optimizer's (for
+A checkpoint holds the whole train state: a
+:class:`~mvtb_tpu_torch.train.seg.SegState` (or a GAN's
+:class:`~mvtb_tpu_torch.train.gan.GANState`), or a dict of them (the GAN
+runs' joint ``{"g": ..., "d": ...}``). For each, the model's ``state_dict``
+(BatchNorm running averages included), the optimizer's (for
 :class:`~mvtb_tpu_torch.train.seg.ReferenceAmsgrad`, each parameter's
 ``count``, ``mu``, ``nu`` and ``nu_max``) and the step count, so a run can
 resume where it stopped. Files hold tensors, numbers, strings, lists and
@@ -20,11 +23,29 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
+
+
+def _payload(state: Any) -> dict:
+    if isinstance(state, Mapping):
+        return {name: _payload(s) for name, s in state.items()}
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step)}
+
+
+def _load(state: Any, payload: dict) -> None:
+    if isinstance(state, Mapping):
+        for name, s in state.items():
+            _load(s, payload[name])
+        return
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = payload["step"]
 
 
 def _replace_atomically(path: str, write) -> None:
@@ -77,7 +98,7 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{step}.{ext}")
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> bool:
-        """Write ``state`` (a ``SegState``) as checkpoint ``step``, then drop
+        """Write ``state`` (a train state or a dict of them) as checkpoint ``step``, then drop
         the checkpoints retention no longer keeps. As orbax, a step at or
         below the latest one is not saved, and False is returned."""
         step = int(step)
@@ -92,9 +113,7 @@ class CheckpointManager:
             with open(tmp, "w") as f:
                 json.dump(metrics, f)
 
-        payload = {"model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict(),
-                   "step": int(state.step)}
+        payload = _payload(state)
         _replace_atomically(self._path(step, "json"), write_metrics)
         _replace_atomically(self._path(step, "pt"), lambda tmp: torch.save(payload, tmp))
         self._metrics[step] = metrics
@@ -133,11 +152,9 @@ class CheckpointManager:
         path = self._path(step, "pt")
         if step not in self._metrics or not os.path.exists(path):
             raise FileNotFoundError(f"no checkpoint for step {step} in {self.directory}")
-        dev = next(state.model.parameters()).device
-        payload = torch.load(path, map_location=dev, weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
-        state.step = payload["step"]
+        # loaded to the host, then copied onto the parameters' devices by
+        # load_state_dict; torch.optim keeps Adam's step counts on the host
+        _load(state, torch.load(path, map_location="cpu", weights_only=True))
         return state
 
     def all_steps(self) -> List[int]:

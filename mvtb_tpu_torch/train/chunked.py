@@ -9,8 +9,11 @@ scalar: the caller reads it once a chunk, and nothing in the loop waits
 for the card. Capturing the chunk in a CUDA graph is ROADMAP.md section 2's
 host-dispatch item.
 
-The learnable-stylization and GAN chunk functions come with their models
-(ROADMAP.md section 1, items 6 and 7).
+The GAN chunk functions (:func:`make_dcgan_chunk_fn`,
+:func:`make_recon_gan_chunk_fn`) run K steps of
+:mod:`~mvtb_tpu_torch.train.gan` the same way and stack the per-step curves
+on the device, so a chunk costs one host read too. The learnable-stylization
+chunk function comes with its model (ROADMAP.md section 1, item 6).
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import torch
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig
 from mvtb_tpu_torch.train.seg import SegState, seg_train_step
+
+# row order of the stacked per-step curves the GAN chunk functions return
+DCGAN_CURVES = ("g_loss", "d_loss", "D_x", "D_G_z1", "D_G_z2")
+RECON_CURVES = ("g_loss", "d_loss", "adv")
 
 
 def make_chunk_fn(stylize: Optional[StylizeConfig],
@@ -57,6 +64,62 @@ def make_chunk_fn(stylize: Optional[StylizeConfig],
                                   generator=generator, device=dev)
             total += loss.float()
         return state, generator, total / n
+
+    return chunk_fn
+
+
+def make_dcgan_chunk_fn(nz: int, real_label: float = 1.0,
+                        device: DeviceLike = None) -> Callable:
+    """K DCGAN iterations per call over a slice pool on the device.
+
+    Returns ``chunk_fn(g_state, d_state, generator, pool, idxs) -> (g_state,
+    d_state, generator, curves)``: step ``i`` trains on the pool rows
+    ``idxs[i]`` (``index_select``) with ``z ~ N(0, 1)`` drawn from
+    ``generator``; ``curves`` is one (5, K) float32 device tensor of the
+    per-step ``DCGAN_CURVES``, the five numbers the reference prints
+    (``50_reconstruction/dcgan.py:140-148``), read once a chunk.
+    """
+    from mvtb_tpu_torch.train.gan import dcgan_step
+
+    dev = resolve_device(device)
+
+    def chunk_fn(g_state, d_state, generator: Optional[torch.Generator],
+                 pool: torch.Tensor, idxs: torch.Tensor):
+        rows = []
+        for i in range(idxs.shape[0]):
+            real = pool.index_select(0, idxs[i])
+            z = torch.randn((real.shape[0], nz, 1, 1), generator=generator, device=dev)
+            m = dcgan_step(g_state, d_state, real, z, real_label=real_label)
+            rows.append(torch.stack([m[k].float() for k in DCGAN_CURVES]))
+        return g_state, d_state, generator, torch.stack(rows, dim=1)
+
+    return chunk_fn
+
+
+def make_recon_gan_chunk_fn(zf_p: float, alpha: float, gamma: float,
+                            freq_domain: bool, compress_kind: str,
+                            pre_corrupt_real: bool, real_label: float = 1.0,
+                            device: DeviceLike = None) -> Callable:
+    """K ReconGAN / Gibbs-GAN iterations per call, as
+    :func:`make_dcgan_chunk_fn`: each step's three compress draws come from
+    ``generator`` (:func:`~mvtb_tpu_torch.train.gan.sample_recon_draws`),
+    and ``curves`` is one (3, K) device tensor of ``RECON_CURVES``."""
+    from mvtb_tpu_torch.train.gan import recon_gan_step, sample_recon_draws
+
+    dev = resolve_device(device)
+
+    def chunk_fn(g_state, d_state, generator: Optional[torch.Generator],
+                 pool: torch.Tensor, idxs: torch.Tensor):
+        rows = []
+        for i in range(idxs.shape[0]):
+            real = pool.index_select(0, idxs[i])
+            draws = sample_recon_draws(compress_kind, real.shape, generator, dev)
+            m = recon_gan_step(g_state, d_state, real, draws, zf_p=zf_p, alpha=alpha,
+                               gamma=gamma, freq_domain=freq_domain,
+                               compress_kind=compress_kind,
+                               pre_corrupt_real=pre_corrupt_real, real_label=real_label)
+            rows.append(torch.stack([m[k].float() for k in RECON_CURVES]))
+        return g_state, d_state, generator, torch.stack(rows, dim=1)
 
     return chunk_fn
 

@@ -116,12 +116,18 @@ def test_dft_pallas_runs_the_axis_transforms_at_high(monkeypatch):
 
 
 def test_complex_path_raises(monkeypatch):
-    # the seam the JAX package patches to drive its complex path
+    """The seam the JAX package patches to drive its complex path drives the
+    port's too, which no longer raises: the complex path agrees with the
+    half-spectrum one (the JAX tests' 2e-5 of the scale)."""
+    x = torch.from_numpy(np.random.RandomState(8).randn(2, 2, 8, 6, 5)
+                         .astype(np.float32))
+    cfg = tfused.StylizeConfig(disk_r=3.0, wrap_alpha=0.5, fft_backend="dft")
+    draws = tfused.sample_draws(cfg, (8, 6, 5), 2, 2,
+                                generator=torch.Generator().manual_seed(9), device="cpu")
+    half = tfused.stylize_batch(x, cfg, draws=draws, device="cpu")
     monkeypatch.setattr(tfused, "_rfft_eligible", lambda cfg, spatial: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.stylize_batch(torch.zeros(1, 1, 8, 6, 5),
-                             tfused.StylizeConfig(disk_r=3.0, fft_backend="dft"),
-                             device="cpu")
+    full = tfused.stylize_batch(x, cfg, draws=draws, device="cpu")
+    assert float((full - half).abs().max()) < 2e-5 * float(x.abs().max())
 
 
 def test_auto_resolves_as_jax(monkeypatch):

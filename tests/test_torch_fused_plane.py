@@ -47,10 +47,16 @@ TOL = {"plane": 2e-5, "plane_fast": 2e-2}
 
 def jax_stage_draws(key, cfg, shape) -> tfused.StageDraws:
     """Replay the JAX package's ``stylize_batch`` draws (``stage_keys`` of
-    each sample's split key) into the port's draw struct, S&P field too."""
+    each sample's split key) into the port's draw struct, for any number of
+    spatial axes: the zero-fill fields on the grid the JAX path stores
+    (``jfused._rfft_eligible``, which a test may patch), the spike's
+    uniform and the S&P field too."""
     B, C = shape[:2]
     spatial = tuple(shape[2:])
+    nd = len(spatial)
     f32 = jnp.float32
+    use_rfft = jfused._rfft_eligible(cfg, spatial)
+    grid = (spatial[:-1] + (spatial[-1] // 2 + 1,)) if use_rfft else spatial
     rows = []
     for k in jax.random.split(key, B):
         ks = jfused.stage_keys(k, cfg)
@@ -63,24 +69,26 @@ def jax_stage_draws(key, cfg, shape) -> tfused.StageDraws:
                         "wrap": "wrap_alpha"}[name]
                 d[pkey] = jfused._sample(ks[pkey], spec, f32)
                 d[name + "_gate"] = jfused._gate(ks[name + "_gate"], prob)
+        if cfg.zf_p is not None:
+            d["zf_u"] = jax.random.uniform(ks["zf_u"], (C,) + grid, f32)
+            if use_rfft:
+                d["zf_u2"] = jax.random.uniform(
+                    jax.random.fold_in(ks["zf_u"], 1), (C,) + grid, f32)
+            d["zf_gate"] = jfused._gate(ks["zf_gate"], cfg.zf_prob)
         if cfg.spike:
-            lo, hi = cfg.spike_range
-            loc_keys = jax.random.split(ks["spike_loc"], 3)
+            loc_keys = jax.random.split(ks["spike_loc"], nd)
             if cfg.spike_channel_wise:
                 sh = jnp.stack([jax.random.randint(loc_keys[a], (C,), 0, spatial[a])
-                                for a in range(3)], -1)
+                                for a in range(nd)], -1)
                 u = jax.random.uniform(ks["spike_val"], (C,), f32)
                 g = jax.random.bernoulli(ks["spike_gate"], cfg.spike_prob, (C,))
             else:
                 sh = jnp.stack([jax.random.randint(loc_keys[a], (), 0, spatial[a])
-                                for a in range(3)])
-                sh = jnp.broadcast_to(sh, (C, 3))
+                                for a in range(nd)])
+                sh = jnp.broadcast_to(sh, (C, nd))
                 u = jnp.broadcast_to(jax.random.uniform(ks["spike_val"], (), f32), (C,))
                 g = jnp.full((C,), jfused._gate(ks["spike_gate"], cfg.spike_prob))
-            lo_a = jnp.full((C,), lo, f32)
-            hi_a = jnp.full((C,), hi, f32)
-            d["spike_shifted"], d["spike_gates"] = sh, g
-            d["spike_vals"] = lo_a + (hi_a - lo_a) * u
+            d["spike_shifted"], d["spike_u"], d["spike_gates"] = sh, u, g
         if cfg.plane_axes is not None:
             shell = jnp.asarray(ellipsoid_shell_mask(spatial, *cfg.plane_axes).ravel())
             flat = jax.random.categorical(ks["plane_loc"],
@@ -189,7 +197,9 @@ def test_sampled_draws_are_reproducible_and_in_range():
                             generator=torch.Generator().manual_seed(5), device="cpu")
     assert torch.equal(a.sap_u, b.sap_u) and torch.equal(a.spike_shifted, b.spike_shifted)
     assert ((a.gibbs_alpha >= 0.2) & (a.gibbs_alpha <= 0.5)).all()
-    assert ((a.spike_vals >= 9.0) & (a.spike_vals <= 10.0)).all()
+    vals = tfused.spike_log_values(cfg, a)
+    assert ((a.spike_u >= 0.0) & (a.spike_u < 1.0)).all()
+    assert ((vals >= 9.0) & (vals <= 10.0)).all()
     assert a.spike_shifted.shape == (4, 3, 3)
     for axis, n in enumerate(spatial):
         assert ((a.spike_shifted[..., axis] >= 0) & (a.spike_shifted[..., axis] < n)).all()
@@ -231,7 +241,17 @@ def test_eligibility_has_no_vmem_bound():
     dict(n_dims=2, disk_r=4.0, fft_backend="dft"),
 ])
 def test_unported_paths_raise(kw):
+    """The configs the port once rejected (hybrid, zero-fill, the
+    data-dependent spike range, 2D) raise no more: each matches the JAX
+    package on replayed draws (plane-ineligible ones take the general path,
+    as in the JAX package)."""
     cfg = tfused.StylizeConfig(**kw)
-    x = torch.zeros((1, 1) + (16, 12, 10)[:cfg.n_dims])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.stylize_batch(x, cfg, device="cpu")
+    jcfg = jfused.StylizeConfig(**kw)
+    shape = (2, 2) + (16, 12, 10)[:cfg.n_dims]
+    x = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    key = jax.random.key(11)
+    ref = jfused.stylize_batch(jnp.asarray(x), key, jcfg)
+    got = tfused.stylize_batch(torch.from_numpy(x), cfg,
+                               draws=jax_stage_draws(key, jcfg, shape), device="cpu")
+    tol = 2e-2 if cfg.fft_backend == "plane_fast" else 1e-4
+    assert rel_err(got.numpy(), ref) < tol, kw

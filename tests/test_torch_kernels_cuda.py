@@ -23,7 +23,9 @@ include the eval slice's (8, 240, 240, 160), the bench's (16, 240, 240,
 kernel must be bit-equal to its plain version (the same Philox words and
 the same float32 select); the polar kernel within 1e-6 elementwise
 relative (``logf``/``expf`` of the CUDA math library on both sides, within
-an ulp of each other).
+an ulp of each other). The axis kernels are also held on the complex path's
+full-spectrum r2c and c2r (n = 128 and 240, two or three 80-column chunks)
+and on the 2D views of the GAN family's 128x128 slices.
 """
 
 import pytest
@@ -271,6 +273,84 @@ def test_general_stylize_on_the_card_matches_cpu(backend, cuda_device):
     # dft_pallas: bf16x3 on both sides, the axis kernels' high bound
     tol = AXIS_TOL["high"] if backend == "dft_pallas" else 1e-5
     assert rel_err(got.cpu(), ref) <= tol
+
+
+# the full-spectrum matrices of the complex path (r2c from a real first
+# axis, c2r into the last), wider than one 80-column chunk at n = 128 and
+# 240, and the 2D views of a 4x1x128x128 batch
+FULL_LAYOUTS = [("r2c", False, (4, 128, 128), "full", 128),
+                ("r2c", False, (8, 240, 240), "full", 240),
+                ("r2c", True, (512, 128), "full", 128),
+                ("c2r", True, (512, 128), "full", 128),
+                ("c2r", True, (1920, 240), "full", 240),
+                ("c2r", False, (4, 128, 128), "full", 128),
+                ("r2c", True, (512, 128), "half", 128),
+                ("c2c", False, (4, 128, 65), "gauss", 128),
+                ("c2r", True, (512, 65), "half_inv", 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,lane,view,kind,n", FULL_LAYOUTS,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_full_spectrum_and_2d_layouts_match_plain(body, lane, view, kind, n, cuda_device):
+    """At ``high``: against the plain version (AXIS_TOL) and against
+    complex128 (at most EXACT_RATIO x the plain version's error)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    ins = [torch.randn(view, generator=g, device=cuda_device)
+           for _ in range(pallas_dft.ARITY[body][0])]
+    inverse = body == "c2r"
+    mats = dft.device_mats(kind, n, inverse, cuda_device)
+    call = pallas_dft.lane_call if lane else pallas_dft.sub_call
+    got = call(body, ins, mats, "high")
+    ref = pallas_dft.plain(body, lane, ins, mats, "high")
+    dim = -1 if lane else 1
+    if body == "r2c":
+        k = (torch.fft.rfft if kind == "half" else torch.fft.fft)(ins[0].double(), dim=dim)
+        exact = (k.real, k.imag)
+    else:
+        z = torch.complex(ins[0].double(), ins[1].double())
+        if body == "c2c":
+            k = torch.fft.fft(z, dim=dim)
+            exact = (k.real, k.imag)
+        else:
+            exact = (torch.fft.irfft(z, n=n, dim=dim) if kind == "half_inv"
+                     else torch.fft.ifft(z, dim=dim).real,)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert rel_err(a, b) <= AXIS_TOL["high"], (body, view)
+    assert complex_rel_err(got, exact) <= EXACT_RATIO * complex_rel_err(ref, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_path", [False, True], ids=["half", "complex"])
+@pytest.mark.parametrize("backend", ["dft_pallas", "dft", "xla", "hybrid"])
+def test_2d_and_complex_stylize_on_the_card_matches_cpu(backend, complex_path, cuda_device,
+                                                        monkeypatch):
+    """The GAN family's 2D stack (zero-fill, the data-dependent spike range)
+    and a 3D zero-fill stack on the card against the CPU; on the complex
+    path dft_pallas launches the full-spectrum r2c and c2r."""
+    if complex_path:
+        monkeypatch.setattr(fused, "_rfft_eligible", lambda cfg, spatial: False)
+    g = torch.Generator().manual_seed(5)
+    for kw, shape in ((dict(n_dims=2, gibbs_alpha=(0.0, 1.0), disk_r=(10.0, 30.0),
+                            wrap_alpha=0.5, spike=True, zf_p=0.2, sap_p=0.05),
+                       (4, 1, 128, 128)),
+                      (dict(disk_r=(3.0, 6.0), zf_p=0.3, spike=True, plane_axes=(6.0, 5.0, 4.0),
+                            plane_intensity=12.0), (2, 2, 20, 18, 15))):
+        cfg = fused.StylizeConfig(**kw, fft_backend=backend)
+        x = torch.randn(shape, generator=g)
+        draws = fused.sample_draws(cfg, shape[2:], shape[0], shape[1], generator=g,
+                                   device="cpu")
+        before = dict(pallas_dft.launches)
+        got = fused.stylize_batch(x, cfg, draws=draws, device=cuda_device)
+        torch.cuda.synchronize()
+        ref = fused.stylize_batch(x, cfg, draws=draws, device="cpu")
+        if backend == "dft_pallas":
+            nd = len(shape) - 2
+            assert {k: pallas_dft.launches[k] - before[k] for k in before} == \
+                {"r2c": 1, "c2c": 2 * (nd - 1), "c2r": 1}
+        tol = AXIS_TOL["high"] if backend == "dft_pallas" else 1e-5
+        assert rel_err(got.cpu(), ref) <= tol, (kw, backend)
 
 
 # the pointwise kernels: counts that are and are not multiples of 4, and an

@@ -38,6 +38,9 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.ops.corruptions, mvtb_tpu_torch.ops.pallas_kernels, "
             "mvtb_tpu_torch.transforms, mvtb_tpu_torch.transforms.base, "
             "mvtb_tpu_torch.transforms.array, mvtb_tpu_torch.transforms.dictionary, "
+            "mvtb_tpu_torch.models.dcgan, mvtb_tpu_torch.models.resunet_gan, "
+            "mvtb_tpu_torch.eval.fid, mvtb_tpu_torch.train.gan, "
+            "mvtb_tpu_torch.train.chunked, mvtb_tpu_torch.experiments.runner, "
             "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
@@ -93,6 +96,16 @@ def test_entry_points_default_to_the_card(no_card):
         fused.stylize_batch(x, pallas_cfg)
     assert state.step == 0
     assert resolve_device("cpu") == torch.device("cpu")
+    # the GAN family
+    from mvtb_tpu_torch.eval.fid import FrozenFeatureEncoder
+    from mvtb_tpu_torch.models import (Discriminator, Generator, ResUnetDiscriminator,
+                                       ResUnetGenerator)
+    from mvtb_tpu_torch.train.gan import sample_recon_draws
+    for make in (lambda: Generator(8, 2, 1), lambda: Discriminator(1, 2),
+                 lambda: ResUnetGenerator(1, 2), lambda: ResUnetDiscriminator(1, 2),
+                 lambda: FrozenFeatureEncoder(1), lambda: sample_recon_draws("zf", (1, 1, 8, 8))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 @pytest.mark.parametrize("make", [
@@ -178,6 +191,15 @@ def test_wrapper_takes_plain_only_for_cpu_tensors():
     assert all(torch.equal(a, b) for a, b in zip(
         pallas_kernels.polar_roundtrip_pallas(k, k), pallas_kernels.polar_roundtrip_plain(k, k)))
     assert pallas_kernels.launches == counts
+    # the axis kernels' n-D transforms (every path of dft_pallas, the complex
+    # one too): plain on CPU tensors, no kernel and no fallback elsewhere
+    before = dict(pallas_dft.launches)
+    x = torch.randn(2, 6, 5)
+    for fn in (pallas_dft.dft_nd, pallas_dft.idft_nd_real):
+        torch.testing.assert_close(fn(x, (1, 2), "high"), fn(x, (1, 2), "high"))
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(x.to("meta"), (1, 2), "high")
+    assert pallas_dft.launches == before
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
