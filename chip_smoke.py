@@ -115,7 +115,28 @@ order, each fatal on failure:
    hand-written kernel launched (the stylize runs ``auto`` -> ``dft``); per
    kind ms per step, steps/s, FID, checkpoint save and restore ms, and over
    single chunks the host reads, the device's idle share and top kernels;
-11. timing with CUDA events: the plane kernel, its plain version and
+11. domain phase (the hospital-domain protocol, ``run_domain_experiment``,
+   at the registry's full width: 1 -> 1, UNet 16..256, bf16, 128x128x64, 8
+   volumes a hospital; cut in depth to 2 epochs of 8 steps):
+   ``gibbs15_domain`` as registered (``auto`` -> ``dft``: no hand-written
+   launch), ``fast_science(gibbs35_spikes10_sap0p08_domain)`` (one
+   ``plane_fast`` launch per train step and per ``StylizedLoader`` batch,
+   counted from the loaders) and that entry on ``dft_pallas`` (r2c, c2c, c2r
+   1, 4, 1 per stylize, all at ``high``): finite losses, Dice and gap, the
+   written files, ms per step, evaluation seconds per hospital, pool
+   seconds; card against CPU from the same weights in float32 (disk r = 15
+   on ``plane``; each hospital's Dice within 1e-3, one stylized batch within
+   5e-5 of the max); sliding-window inference at 240x240x155 (ROI
+   128x128x64, overlap 0.25, 27 tiles; ms and volumes/s at B = 1 constant
+   and gaussian, B = 2, B = 1 per tile; in float32 ``tile_batch`` 1 against
+   8 within 1e-5 of the max and ``low_memory`` both ways equal); the NIfTI
+   path: a 10-volume 4x240x240x155 Decathlon tree (written by a second
+   process meanwhile), one gzipped volume through the native and the Python
+   reader (equal arrays), read and resample ms, and the corruption sweep
+   (``BratsValIterDataset``, two corruptions) through ``ModelEvaluation``
+   with a full-width 4 -> 3 UNet and the sliding window; whether the native
+   library built;
+12. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -274,6 +295,35 @@ GAN_EPOCHS = {"dcgan": 4, "recon_gan": 2, "recon_gan_freq": 2, "gibbs_gan": 2}
 GAN_STEPS, GAN_CKPT_EVERY, GAN_POOL = 8, 2, 256
 # card vs CPU of one GAN step in float64, gradients relative to the largest
 GAN_GRAD_TOL = 1e-4
+# the domain phase: the registry's *_domain entries at full width (1 -> 1,
+# UNet 16..256, 2 residual units, bf16, batch 2, 128x128x64, 8 volumes a
+# hospital), cut in depth only, to 2 epochs of 8 steps
+DOMAIN_EPOCHS, DOMAIN_STEPS, DOMAIN_N = 2, 8, 8
+DOMAIN_AUTO, DOMAIN_KERNEL = "gibbs15_domain", "gibbs35_spikes10_sap0p08_domain"
+# card against CPU: each hospital's hard Dice from the same weights in
+# float32 under the disk r = 15 (prob 1) on "plane" (card: the kernel, at
+# most 5e-5 of the max from the CPU's plain version); a Dice moves only
+# where a logit sits at the threshold, one voxel of a ~50k-voxel tumor
+# moving it by ~2e-5
+DOMAIN_DICE_TOL = 1e-3
+# sliding window at TCGA scale (benchmarks.py config10): 27 tiles a volume
+SW_VOLUME, SW_ROI, SW_OVERLAP, SW_TOL = (240, 240, 155), (128, 128, 64), 0.25, 1e-5
+SW_CASES = (("b1_const", 1, "constant", 8), ("b1_gauss", 1, "gaussian", 8),
+            ("b2_const", 2, "constant", 8), ("b1_const_pertile", 1, "constant", 1))
+# the NIfTI path: MONAI's split keeps int(0.2 n) = 2 validation volumes and
+# the sweep's half split 1; "smooth" volumes (the textured generator takes
+# ~12 s a 4x240x240x155 volume on one host core)
+NIFTI_N, NIFTI_SPATIAL = 10, (240, 240, 155)
+NIFTI_TREE = (
+    "import sys, time\n"
+    "from mvtb_tpu_torch.data import build_decathlon_tree, read_nifti, write_nifti\n"
+    "t = time.perf_counter()\n"
+    "task = build_decathlon_tree(sys.argv[1], n={n}, channels=4, spatial={sp}, kind='smooth',\n"
+    "                            gzip_files=False)\n"
+    "tree_s = time.perf_counter() - t\n"
+    "img, aff = read_nifti(task + '/imagesTr/synth_000.nii', prefer_native=False)\n"
+    "write_nifti(task + '/gz_check.nii.gz', img[..., 0], aff)\n"
+    "print(tree_s, time.perf_counter() - t - tree_s)\n")
 
 
 def out(obj) -> None:
@@ -1876,14 +1926,315 @@ def gan_phase(dev) -> dict:
     return res
 
 
-def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr) -> list:
+def _domain_run(tag: str, cfg, tmp: str, dev) -> tuple:
+    """One ``run_domain_experiment`` on the card, its launches counted from
+    zero; the host's time to build the hospitals (``domain_loaders``), each
+    train step (host clock around the step, synchronised) and each
+    hospital's evaluation are read through wrappers of the runner's
+    names. Returns (result, record, train steps, evaluation batches)."""
+    from mvtb_tpu_torch.experiments import runner
+    from mvtb_tpu_torch.ops import fused_plane, pallas_dft
+
+    seen, timing = {}, {"step_ms": [], "eval_s": {}}
+    real = (runner.domain_loaders, runner.seg_train_step, runner.ModelEvaluation,
+            fused_plane.plane_stylize_half_plain, pallas_dft.plain)
+    plain_on_card = []
+
+    def loaders(**kw):
+        t = time.perf_counter()
+        seen["train"], seen["val"] = real[0](**kw)
+        timing["pool_s"] = time.perf_counter() - t
+        return seen["train"], seen["val"]
+
+    def step(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = real[1](*a, **kw)
+        torch.cuda.synchronize()
+        timing["step_ms"].append((time.perf_counter() - t) * 1e3)
+        return loss
+
+    class TimedEvaluation(real[2]):
+        def add_eval(self, name=None, test_loader=None, data_dict=None):
+            t = time.perf_counter()  # ends in the Dice's host reads
+            super().add_eval(name, test_loader, data_dict)
+            timing["eval_s"][name] = time.perf_counter() - t
+
+    def watched_plane(k_re, *a, **kw):
+        if k_re.is_cuda:
+            plain_on_card.append(("fused_plane", tuple(k_re.shape)))
+        return real[3](k_re, *a, **kw)
+
+    def watched_axis(body, lane, ins, *a, **kw):
+        if ins[0].is_cuda:
+            plain_on_card.append((body, tuple(ins[0].shape)))
+        return real[4](body, lane, ins, *a, **kw)
+
+    (runner.domain_loaders, runner.seg_train_step, runner.ModelEvaluation,
+     fused_plane.plane_stylize_half_plain, pallas_dft.plain) = (
+        loaders, step, TimedEvaluation, watched_plane, watched_axis)
+    _zero_launch_counts()
+    pallas_dft.tier_launches.clear()
+    t0 = time.perf_counter()
+    try:
+        res = runner.run_domain_experiment(
+            cfg, epochs=DOMAIN_EPOCHS, steps_per_epoch=DOMAIN_STEPS, n_per_hospital=DOMAIN_N,
+            workdir=f"{tmp}/{tag}", verbose=False, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        (runner.domain_loaders, runner.seg_train_step, runner.ModelEvaluation,
+         fused_plane.plane_stylize_half_plain, pallas_dft.plain) = real
+    wall_s = time.perf_counter() - t0
+    launches, tiers = _launch_counts(), dict(pallas_dft.tier_launches)
+    check(not plain_on_card, f"{tag}: plain version ran on the card: {plain_on_card}")
+    steps = DOMAIN_EPOCHS * min(DOMAIN_STEPS, len(seen["train"]))
+    batches = sum(len(v) for v in seen["val"].values())
+    check(len(res["losses"]) == steps and all(math.isfinite(v) for v in res["losses"]),
+          f"{tag}: losses {res['losses']}")
+    check(list(res["eval_dict"]) == ["hospital_A", "hospital_B", "hospital_C", "holdout"]
+          and all(math.isfinite(v) for v in res["eval_dict"].values()),
+          f"{tag}: Dice {res['eval_dict']}")
+    # (the normalized gap is NaN where the in-distribution mean is 0)
+    check(all(math.isfinite(res["gap"][k]) for k in ("in_dist_mean", "holdout", "gap")),
+          f"{tag}: gap {res['gap']}")
+    files = sorted(os.listdir(f"{tmp}/{tag}"))
+    check(files == sorted(f"{cfg.name}{x}" for x in ("_domain.json", "_domain.pickle",
+                                                      "_gap.json")), f"{tag}: files {files}")
+    record = {"config": cfg.name, "batch": cfg.batch_size, "train_steps": steps,
+              "eval_batches": batches, "losses": res["losses"], "eval_dict": res["eval_dict"],
+              "gap": res["gap"], "launches": launches,
+              "launches_by_route_and_tier": {" ".join(k): v for k, v in tiers.items()},
+              "pool_s": timing["pool_s"], "step_ms": timing["step_ms"],
+              "ms_per_step_after_first": statistics.median(timing["step_ms"][1:]),
+              "eval_s": timing["eval_s"], "wall_s": wall_s}
+    return res, record, steps, batches
+
+
+def domain_phase(dev) -> dict:
+    """The hospital-domain protocol (``run_domain_experiment``) and the
+    evaluation it rests on, at the registry's full width (1 -> 1, UNet
+    16..256, bf16, 128x128x64, 8 volumes a hospital), cut in depth to 2
+    epochs of 8 steps.
+
+    (a) Three domain runs: ``gibbs15_domain`` as registered (``auto`` ->
+    ``dft``: no hand-written launch), ``fast_science(gibbs35_spikes10_
+    sap0p08_domain)`` (disk, plane write and S&P on ``plane_fast``, batch
+    16: one plane-kernel launch per train step and per ``StylizedLoader``
+    batch, counted from the loaders) and the same entry with both stylizes
+    on ``dft_pallas`` (r2c, c2c, c2r 1, 4, 1 per stylize, all at
+    ``high``); each with finite losses, Dice and gap, its files, ms per
+    step, evaluation seconds per hospital and pool seconds. (b) Card
+    against CPU: one evaluation of the 4 hospitals from the first run's
+    weights in float32 under the disk r = 15 on ``plane`` (CPU: its plain
+    version), Dice within 1e-3, and one ``StylizedLoader`` batch within the
+    tier's 5e-5. (c) Sliding window at TCGA scale (240x240x155, ROI
+    128x128x64, overlap 0.25, 27 tiles, full-width 1 -> 1 UNet in bf16):
+    ms and volumes/s for B = 1 constant and gaussian, B = 2, B = 1 per
+    tile; in float32, ``tile_batch`` 1 against 8 within 1e-5 of the max
+    and ``low_memory`` both ways equal. (d) The NIfTI path: a 10-volume
+    4x240x240x155 Decathlon tree (uncompressed, written by a second process
+    while (a)-(c) run), one gzipped volume read by the native and the
+    Python reader (equal arrays), the read and resample ms, and
+    ``BratsValIterDataset`` with two named corruptions through
+    ``ModelEvaluation(roi_size=(128, 128, 64))`` and a full-width 4 -> 3
+    UNet."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from mvtb_tpu_torch import native
+    from mvtb_tpu_torch.data import (BratsValIterDataset, DecathlonDataset, StylizedLoader,
+                                     domain_loaders, read_nifti)
+    from mvtb_tpu_torch.data.preprocess import resample_to_spacing
+    from mvtb_tpu_torch.eval import ModelEvaluation, sliding_window_inference
+    from mvtb_tpu_torch.eval.sliding_window import _grid_positions
+    from mvtb_tpu_torch.experiments import registry
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.ops import fused, fused_plane, pallas_dft
+    from mvtb_tpu_torch.transforms import RandFourierDiskMaskd, SaltAndPepper
+
+    res = {"epochs": DOMAIN_EPOCHS, "steps_per_epoch": DOMAIN_STEPS,
+           "n_per_hospital": DOMAIN_N, "native_available": native.available()}
+    tmp = tempfile.mkdtemp(prefix="mvtb_domain_")
+    tree = subprocess.Popen(
+        [sys.executable, "-c", NIFTI_TREE.format(n=NIFTI_N, sp=NIFTI_SPATIAL), f"{tmp}/tree"],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        # (a) the three domain runs
+        auto = registry.get(DOMAIN_AUTO)
+        kernel = registry.get(DOMAIN_KERNEL)
+        fast = registry.fast_science(kernel)
+        check(fused_plane.plane_kernel_eligible(fast.train_stylize, fast.spatial),
+              f"{fast.name}: the plane kernel does not implement its stylize")
+        on_pallas = {s: dataclasses.replace(getattr(kernel, s), fft_backend="dft_pallas")
+                     for s in ("train_stylize", "val_stylize")}
+        pallas = dataclasses.replace(kernel, name=kernel.name + "_dft_pallas", **on_pallas)
+        runs = {}
+        first, runs["auto"], _, _ = _domain_run("auto", auto, tmp, dev)
+        check(not any(runs["auto"]["launches"].values()),
+              f"auto: a hand-written kernel launched: {runs['auto']['launches']}")
+        _, runs["plane_fast"], steps, batches = _domain_run("plane_fast", fast, tmp, dev)
+        launches = runs["plane_fast"]["launches"]
+        check(launches["fused_plane"] == steps + batches == sum(launches.values()),
+              f"plane_fast: {launches}, expected {steps} + {batches} plane launches only")
+        _, runs["dft_pallas"], steps, batches = _domain_run("dft_pallas", pallas, tmp, dev)
+        launches, tiers = runs["dft_pallas"]["launches"], runs["dft_pallas"][
+            "launches_by_route_and_tier"]
+        for body, per_call in LAUNCHES_PER_STEP.items():
+            want = per_call * (steps + batches)
+            key = " ".join((body, pallas_dft.route(body, PATH_TIER), PATH_TIER))
+            check(launches[f"axis_dft_{body}"] == want == tiers.get(key, 0),
+                  f"dft_pallas: {body} {launches} {tiers}, expected {want} at {key}")
+        check(sum(launches.values()) == sum(tiers.values()),
+              f"dft_pallas: other kernels launched: {launches}")
+        res["runs"] = runs
+
+        # (b) card against CPU from the first run's weights, float32
+        weights = {k: v.detach().float().cpu() for k, v in first["state"].model.state_dict().items()}
+        del first
+        sty = fused.StylizeConfig(disk_r=15.0, disk_prob=1.0, fft_backend="plane")
+        _, val = domain_loaders(batch_size=auto.batch_size, n_per_hospital=DOMAIN_N, seed=0,
+                                spatial=auto.spatial)
+        scores, seconds = {}, {}
+        for key, side in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = UNet(auto.in_channels, auto.out_channels, auto.channels, auto.strides,
+                         auto.num_res_units, device=side).eval()
+            model.load_state_dict(weights)
+            ev = ModelEvaluation(model, out_channels=1, device=side)
+            _zero_launch_counts()
+            t = time.perf_counter()
+            for name, loader in val.items():
+                ev.add_eval(name, StylizedLoader(loader, sty, 0, device=side))
+            seconds[key] = time.perf_counter() - t
+            scores[key] = dict(ev.eval_dict)
+            if key == "card":
+                check(fused_plane.plane_stylize_half.launches == sum(len(v) for v in val.values()),
+                      f"card evaluation: {fused_plane.plane_stylize_half.launches} plane launches")
+        dice_diff = max(abs(scores["card"][k] - scores["cpu"][k]) for k in scores["cpu"])
+        check(dice_diff <= DOMAIN_DICE_TOL,
+              f"card vs CPU Dice {scores}: {dice_diff:.3e} > {DOMAIN_DICE_TOL}")
+        card_b, cpu_b = (next(iter(StylizedLoader(val["holdout"], sty, 0, device=side)))["image"]
+                         for side in (dev, "cpu"))
+        batch_err = rel_err(torch.from_numpy(card_b), torch.from_numpy(cpu_b))
+        check(batch_err <= TOL["plane"],
+              f"StylizedLoader card vs CPU {batch_err:.3e} > {TOL['plane']}")
+        res["card_vs_cpu"] = {"dice": scores, "max_abs_dice_diff": dice_diff,
+                              "tolerance": DOMAIN_DICE_TOL, "eval_s": seconds,
+                              "stylized_batch_max_rel_err": batch_err,
+                              "stylized_batch_tolerance": TOL["plane"]}
+
+        # (c) sliding window at TCGA scale
+        tiles = math.prod(len(_grid_positions(n, r, SW_OVERLAP)) for n, r in zip(SW_VOLUME, SW_ROI))
+        check(tiles == 27, f"{tiles} tiles")
+        torch.manual_seed(3)
+        bf16 = UNet(1, 1, device=dev, dtype=torch.bfloat16).eval()
+        f32 = UNet(1, 1, device=dev).eval()
+        f32.load_state_dict(bf16.state_dict())
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn((2, 1) + SW_VOLUME, generator=g, device=dev)
+        sw = {"tiles": tiles, "roi": list(SW_ROI), "overlap": SW_OVERLAP}
+        for tag, B, mode, tb in SW_CASES:
+            def call():
+                return sliding_window_inference(x[:B], SW_ROI, bf16, overlap=SW_OVERLAP,
+                                                mode=mode, tile_batch=tb, device=dev)
+            y = call()
+            check(tuple(y.shape) == (B, 1) + SW_VOLUME and bool(torch.isfinite(y).all()),
+                  f"sliding window {tag}: {tuple(y.shape)}")
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            ms = statistics.median(times)
+            sw[tag] = {"ms": ms, "vol_s": B * 1e3 / ms, "B": B, "mode": mode, "tile_batch": tb}
+        one, eight = (sliding_window_inference(x[:1], SW_ROI, f32, overlap=SW_OVERLAP,
+                                               mode="gaussian", tile_batch=tb, device=dev)
+                      for tb in (1, 8))
+        sw["f32_tile_batch_1_vs_8_max_rel_err"] = rel_err(eight, one)
+        check(sw["f32_tile_batch_1_vs_8_max_rel_err"] <= SW_TOL,
+              f"sliding window tile_batch 1 vs 8: {sw['f32_tile_batch_1_vs_8_max_rel_err']:.3e}")
+        # one schedule either way: equal under deterministic cuDNN (its
+        # default algorithms may differ between two calls of one schedule)
+        torch.backends.cudnn.deterministic = True
+        try:
+            lo, hi = (sliding_window_inference(x, SW_ROI, f32, overlap=SW_OVERLAP, tile_batch=3,
+                                               low_memory=lm, device=dev) for lm in (True, False))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(torch.equal(lo, hi), "sliding window: low_memory True and False differ")
+        sw["f32_low_memory_equal"] = True
+        res["sliding_window"] = sw
+        del x, one, eight, lo, hi, bf16, f32, y
+        torch.cuda.empty_cache()
+
+        # (d) the NIfTI path
+        t = time.perf_counter()
+        stdout, _ = tree.communicate(timeout=600)
+        check(tree.returncode == 0, f"the tree's process exited {tree.returncode}")
+        tree_s, gz_write_s = (float(v) for v in stdout.split())
+        root = f"{tmp}/tree"
+        task = f"{root}/Task01_BrainTumour"
+        nifti = {"tree_s": tree_s, "tree_wait_s": time.perf_counter() - t,
+                 "gz_write_s": gz_write_s, "native_available": native.available()}
+        gz = f"{task}/gz_check.nii.gz"
+        t = time.perf_counter()
+        nat, _ = read_nifti(gz)
+        nifti["gz_read_native_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        py, _ = read_nifti(gz, prefer_native=False)
+        nifti["gz_read_python_ms"] = (time.perf_counter() - t) * 1e3
+        check(nat.shape == NIFTI_SPATIAL and np.array_equal(nat, py),
+              "gzipped volume: the native and Python readers differ")
+        entry = DecathlonDataset(root, section="validation").entries[0]
+        t = time.perf_counter()
+        img, aff = read_nifti(f"{task}/{entry['image']}")
+        nifti["read_ms_per_volume"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        resampled, _ = resample_to_spacing(np.ascontiguousarray(np.moveaxis(img, -1, 0)), aff,
+                                           (1.5, 1.5, 2.0))
+        nifti["resample_ms_per_volume"] = (time.perf_counter() - t) * 1e3
+        nifti["resampled_shape"] = list(resampled.shape)
+        del img, resampled, nat, py
+        sweep = BratsValIterDataset(root, transforms={
+            "gibbs12p5": RandFourierDiskMaskd("image", r=12.5, prob=1.0, device=dev),
+            "sap0p05": SaltAndPepper(0.05, "image", device=dev)}, return_loader=True)
+        torch.manual_seed(4)
+        ev = ModelEvaluation(UNet(4, 3, device=dev).eval(), instance_name="nifti_sweep",
+                             roi_size=SW_ROI, device=dev)
+        nifti["eval_s"] = {}
+        for name, loader in sweep:
+            check(len(loader) == 1, f"{name}: {len(loader)} batches, expected the half split's 1")
+            t = time.perf_counter()
+            ev.add_eval(name, loader)
+            nifti["eval_s"][name] = time.perf_counter() - t
+        table = {k: list(v) for k, v in ev.eval_dict.items()}
+        check(list(table) == ["gibbs12p5", "sap0p05"]
+              and all(len(v) == 4 and all(math.isfinite(x) for x in v) for v in table.values()),
+              f"the sweep's Dice table {table}")
+        nifti["dice_mean_et_tc_wt"] = table
+        res["nifti"] = nifti
+    finally:
+        if tree.poll() is None:
+            tree.kill()
+            tree.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
-    path and the runner's fast profile (timed at the eval slice), each axis
-    kernel from the train path and the fused-rest paths (timed at the train
-    shape)."""
+    path, the runner's fast profile and the domain runs' (timed at the eval
+    slice), each axis kernel from the train path, the fused-rest paths and
+    the domain run on ``dft_pallas`` (timed at the train shape)."""
     main_t = tm["plane slice"]
+    domain = dm["runs"]
     by_path = {"eval_slice": sl["launches"],
-               "runner_fast": rn["fast"]["launches"]["fused_plane"]}
+               "runner_fast": rn["fast"]["launches"]["fused_plane"],
+               "domain_plane_fast": domain["plane_fast"]["launches"]["fused_plane"]}
     kernels = [{
         "name": "fused_plane", "route": "cuda",
         "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
@@ -1902,12 +2253,14 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr) -> list:
                 if k.startswith("train ") and r["body"] == body and r["precision"] == PATH_TIER]
         check(len(rows) == LAUNCHES_PER_STEP[body], f"{body}: {len(rows)} timed views")
         worst_row = max(rows, key=lambda r: r["bound_ms"])
+        on_domain = domain["dft_pallas"]["launches"][f"axis_dft_{body}"]
         kernels.append({
             "name": f"axis_dft_{body}", "route": "cuda",
             "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
             "replaces": AXIS_REPLACES[body],
-            "launches": tr["launches"][body] + rest[body],
-            "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body]},
+            "launches": tr["launches"][body] + rest[body] + on_domain,
+            "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body],
+                                 "domain_dft_pallas": on_domain},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
@@ -1992,6 +2345,10 @@ def main() -> int:
     gp = gan_phase(dev)
     gp["seconds"] = time.perf_counter() - t0
     out({"gan_phase": gp, "card": smi})
+    t0 = time.perf_counter()
+    dm = domain_phase(dev)
+    dm["seconds"] = time.perf_counter() - t0
+    out({"domain_phase": dm, "card": smi})
 
     t0 = time.perf_counter()
     tm = timing_phase(dev)
@@ -2003,7 +2360,7 @@ def main() -> int:
     pt = pointwise_timing(dev)
     out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr)
+    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",

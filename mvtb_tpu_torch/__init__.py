@@ -14,10 +14,14 @@ on the fused plane kernel, ``csrc/fused_plane.cu``), segmentation training
 (``train.seg.train_segmentation`` on the axis-DFT kernels,
 ``csrc/axis_dft.cu``), the per-volume corruption path (``ops``'
 corruption ops, ``transforms``, and the salt & pepper and polar kernels,
-``csrc/pointwise.cu``) and the experiment runner's segmentation family
-(``experiments``: the registry, ``run`` and the CLI ``python -m
-mvtb_tpu_torch.experiments``, over ``train.chunked``,
-``train.checkpoint`` and ``data``).
+``csrc/pointwise.cu``), the fused stylization in full (2D and 3D, zero-fill,
+the complex path, ``hybrid``), the experiment runner's segmentation and GAN
+families (``experiments``: the registry, ``run`` and the CLI ``python -m
+mvtb_tpu_torch.experiments``, over ``train.chunked``, ``train.checkpoint``,
+``train.gan`` and ``eval.fid``) and the hospital-domain protocol
+(``experiments.run_domain_experiment``, with ``eval``'s harness, sliding
+window and plots, and ``data``'s NIfTI, preprocessing, loaders and
+hospitals over the host's C++ reader and resampler in ``native``).
 """
 
 from mvtb_tpu_torch._device import resolve_device

@@ -7,19 +7,21 @@ label signal lives in high-k texture.
 The generators draw from numpy ``RandomState`` only, so for the same seed
 they give the JAX package's arrays bit for bit. They serve as the test and
 smoke vehicle (the reference's datasets live on a private cluster) and as
-the experiment runner's input when no dataset root is configured. The
-on-disk Decathlon and TCGA trees (``build_decathlon_tree``,
-``build_tcga_tree``) come with the NIfTI port (ROADMAP.md section 1, item
-4).
+the experiment runner's input when no dataset root is configured, and
+fill the on-disk Decathlon and TCGA trees (``build_decathlon_tree``,
+``build_tcga_tree``) in the reference's NIfTI layouts.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from mvtb_tpu_torch.data.nifti import write_nifti
 
 # generate_pool's default cache directory, resolved at call time
 # (tempfile.gettempdir() may probe the file system)
@@ -283,3 +285,79 @@ def onehot_to_brats_ids(label_onehot: np.ndarray) -> np.ndarray:
     ids[tc] = 3.0
     ids[et] = 2.0
     return ids
+
+
+def build_decathlon_tree(root_dir: str, n: int = 8, channels: int = 4,
+                         spatial: Tuple[int, ...] = (64, 64, 32),
+                         kind: str = "textured", seed: int = 0,
+                         task: str = "Task01_BrainTumour",
+                         gzip_files: bool = True,
+                         affine: np.ndarray = None) -> str:
+    """Write a synthetic on-disk Decathlon tree in the real BraTS layout.
+
+    Images land channel-LAST ``(X, Y, Z, C)`` ``.nii.gz`` (the raw BraTS
+    NIfTI layout that ``AsChannelFirstd`` transposes), labels as raw class
+    ids 0..3. The tree is a drop-in stand-in for the real dataset: when
+    BraTS is at hand, point the same pipeline at its root instead. For the
+    same arguments the files hold the JAX package's arrays.
+    """
+    gen = _GENERATORS[kind]
+    rng = np.random.RandomState(seed)
+    task_dir = os.path.join(root_dir, task)
+    return _write_tree(task_dir, gen, rng, n, channels, spatial, gzip_files,
+                       affine)
+
+
+def _write_tree(task_dir, gen, rng, n, channels, spatial, gzip_files, affine,
+                squeeze_channel=False):
+    os.makedirs(os.path.join(task_dir, "imagesTr"), exist_ok=True)
+    os.makedirs(os.path.join(task_dir, "labelsTr"), exist_ok=True)
+    ext = ".nii.gz" if gzip_files else ".nii"
+    entries = []
+    for i in range(n):
+        img, lbl = gen(rng, channels, spatial, 3)
+        # BraTS layout: channel-LAST (*sp, C); TCGA volumes are plain 3-D
+        # (AddChanneld prepends the channel axis at load time)
+        raw_img = img[0] if squeeze_channel else np.moveaxis(img, 0, -1)
+        raw_lbl = onehot_to_brats_ids(lbl)
+        img_rel = f"imagesTr/synth_{i:03d}{ext}"
+        lbl_rel = f"labelsTr/synth_{i:03d}{ext}"
+        write_nifti(os.path.join(task_dir, img_rel), raw_img, affine)
+        write_nifti(os.path.join(task_dir, lbl_rel), raw_lbl, affine)
+        entries.append({"image": img_rel, "label": lbl_rel})
+    with open(os.path.join(task_dir, "dataset.json"), "w") as f:
+        json.dump({"name": "synthetic-brats", "training": entries}, f)
+    return task_dir
+
+
+def build_tcga_tree(root_dir: str, n_per_modality: int = 4,
+                    spatial: Tuple[int, ...] = (24, 24, 12),
+                    kind: str = "textured", seed: int = 0,
+                    affine: np.ndarray = None) -> str:
+    """Write a synthetic TCGA-style tree + per-modality JSON manifest.
+
+    The T2 (institutional-distribution) template loads
+    ``train_sequence_by_modality.json`` — a dict of modality name ->
+    ``[{"image": path, "label": path}, ...]`` — and builds four
+    ``CacheDataset``s from it (``baseline_domain.py:147-172``). Volumes are
+    single-channel NIfTI (``AddChanneld`` prepends the channel axis), labels
+    raw class ids (``WholeTumorTCGA`` binarizes them). Paths in the manifest
+    are absolute, like the reference's cluster paths.
+    """
+    gen = _GENERATORS[kind]
+    rng = np.random.RandomState(seed)
+    manifest = {}
+    for modality in ("FLAIR", "T1", "T1Gd", "T2"):
+        task_dir = _write_tree(os.path.join(root_dir, modality), gen, rng,
+                               n_per_modality, 1, spatial, True, affine,
+                               squeeze_channel=True)
+        with open(os.path.join(task_dir, "dataset.json")) as f:
+            entries = json.load(f)["training"]
+        manifest[modality] = [
+            {k: os.path.join(task_dir, rel) for k, rel in e.items()}
+            for e in entries
+        ]
+    with open(os.path.join(root_dir, "train_sequence_by_modality.json"),
+              "w") as f:
+        json.dump(manifest, f)
+    return root_dir

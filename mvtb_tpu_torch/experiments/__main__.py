@@ -7,14 +7,19 @@
 
     python -m mvtb_tpu_torch.experiments run dcgan --chunked --epochs 4 \
         --steps 8 --ckpt-every 2 --workdir runs/dcgan [--mitigated]
+    python -m mvtb_tpu_torch.experiments domain gibbs15_domain --epochs 2 \
+        --workdir runs/gibbs15_domain
 
 The counterpart of the JAX package's CLI (mvtb_tpu/experiments/__main__.py);
 it prints the same one summary JSON line. ``--device`` defaults to
 ``cuda``. ``--pool`` and ``--val-batches`` set ``run``'s pool and held-out
 sizes; ``--ckpt-every`` the checkpoint (and DCGAN FID) cadence of chunked
 GAN runs; ``--mitigated`` runs a GAN config's mitigation profile
-(``registry.mitigated``: one-sided label smoothing 0.9). The ``domain``
-command raises ``NotImplementedError`` naming its ROADMAP item.
+(``registry.mitigated``: one-sided label smoothing 0.9). ``domain`` runs
+``run_domain_experiment`` with ``--epochs``, ``--steps``, ``--seed``,
+``--workdir``, ``--quiet`` and ``--device``, as the JAX CLI passes them
+(``run``'s options do not apply to it), and prints the summary line with
+the ``gap`` record.
 """
 
 from __future__ import annotations
@@ -69,25 +74,27 @@ def main(argv=None) -> int:
         for n in names():
             print(n)
         return 0
+    fn = run_domain_experiment if args.cmd == "domain" else run
+    kwargs = {}
+    target = args.name
     if args.cmd == "domain" and args.mitigated:
         parser.error("--mitigated is only supported with the 'run' command")
-    if args.cmd == "domain":
-        run_domain_experiment(args.name)
-    target = args.name
-    if args.mitigated:
-        from mvtb_tpu_torch.experiments.registry import get, mitigated
-        from mvtb_tpu_torch.experiments.runner import GAN_KINDS
+    if args.cmd == "run":
+        kwargs = {"val_batches": args.val_batches, "chunked": args.chunked,
+                  "resume": args.resume, "pool": args.pool, "fast": args.fast,
+                  "ckpt_every": args.ckpt_every}
+        if args.mitigated:
+            from mvtb_tpu_torch.experiments.registry import get, mitigated
+            from mvtb_tpu_torch.experiments.runner import GAN_KINDS
 
-        base = get(args.name)
-        if base.kind not in GAN_KINDS:
-            parser.error(f"--mitigated applies to GAN configs only "
-                         f"({args.name} is kind={base.kind!r})")
-        target = mitigated(base)
-    result = run(target, epochs=args.epochs, steps_per_epoch=args.steps,
-                 seed=args.seed, workdir=args.workdir, verbose=not args.quiet,
-                 val_batches=args.val_batches, chunked=args.chunked,
-                 resume=args.resume, pool=args.pool, fast=args.fast,
-                 device=args.device, ckpt_every=args.ckpt_every)
+            base = get(args.name)
+            if base.kind not in GAN_KINDS:
+                parser.error(f"--mitigated applies to GAN configs only "
+                             f"({args.name} is kind={base.kind!r})")
+            target = mitigated(base)
+    result = fn(target, epochs=args.epochs, steps_per_epoch=args.steps,
+                seed=args.seed, workdir=args.workdir, verbose=not args.quiet,
+                device=args.device, **kwargs)
     summary = {k: v for k, v in result.items()
                if k in ("best_dice", "gap", "wall_time_s")}
     print(json.dumps(summary, default=float))

@@ -1,5 +1,6 @@
 """Config-driven experiment runner (counterpart of
-mvtb_tpu/experiments/runner.py): the segmentation and GAN families.
+mvtb_tpu/experiments/runner.py): the segmentation and GAN families and the
+hospital-domain protocol.
 
 :func:`run` executes a registry entry end to end, the replacement for the
 reference's per-script training loops: the segmentation kind (the T1
@@ -9,12 +10,16 @@ template ``baseline.py:232-318`` and its clones) with validation every
 ``50_reconstruction/``, ``351_adversarial_gibbs/``) with a frozen-encoder
 FID for DCGAN. Each runs per step, or chunked over a pool that lives on the
 card, with full-state checkpoints and resume. Data comes from
-:mod:`mvtb_tpu_torch.data.synthetic`.
+:mod:`mvtb_tpu_torch.data.synthetic`. :func:`run_domain_experiment` runs
+the TCGA institutional-distribution protocol: train on three synthetic
+hospitals, score each and a held-out fourth, report the generalization gap.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the learnable-stylization kinds (section 1, item 6) and
-:func:`run_domain_experiment` (item 5, with the data loaders of item 4 and
-the evaluation harness of item 3).
+Not ported yet, raising ``NotImplementedError`` naming their ROADMAP item:
+the learnable-stylization kinds (section 1, item 6).
+
+With a ``workdir``, runs write the JAX runner's PNGs (learning and
+per-class curves, GAN sample grids) when matplotlib can be imported, and
+log one line saying they were skipped when it cannot.
 """
 
 from __future__ import annotations
@@ -29,7 +34,11 @@ import torch
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.data.prefetch import device_prefetch
+from mvtb_tpu_torch.data.pipeline import StylizedLoader
 from mvtb_tpu_torch.data.synthetic import cached_batches, make_volume
+from mvtb_tpu_torch.data.tcga import domain_loaders, generalization_gap
+from mvtb_tpu_torch.eval import plots
+from mvtb_tpu_torch.eval.harness import ModelEvaluation
 from mvtb_tpu_torch.experiments.registry import ExperimentConfig, fast_science
 from mvtb_tpu_torch.experiments.registry import get as get_config
 from mvtb_tpu_torch.models import UNet
@@ -161,6 +170,50 @@ def _evaluate(model: torch.nn.Module, val_i: torch.Tensor, val_l: torch.Tensor,
     return metrics.result()
 
 
+def _plots_available(cfg: ExperimentConfig, log) -> bool:
+    """Whether the PNGs can be written here; logs one line when not."""
+    if plots.available():
+        return True
+    log(f"[{cfg.name}] matplotlib is not importable: PNGs skipped")
+    return False
+
+
+def _save_curves(cfg: ExperimentConfig, history: dict, workdir: str, log) -> None:
+    """The JAX runner's learning-curve PNGs of a segmentation run."""
+    if not _plots_available(cfg, log):
+        return
+    plots.save_learning_curves(history, os.path.join(
+        workdir, f"trainLoss_and_meanValScore_{cfg.name}.png"),
+        cfg.val_interval, title=cfg.name)
+    if history["dice"]:
+        plots.save_per_class_curves(history, os.path.join(
+            workdir, f"meanValScore_per_label_{cfg.name}.png"), title=cfg.name)
+
+
+@torch.no_grad()
+def _save_samples(cfg: ExperimentConfig, g_state, real: torch.Tensor,
+                  workdir: str, log, dev: torch.device) -> None:
+    """The JAX runner's ``samples_{name}.png``: DCGAN samples from 16 z
+    drawn from a generator seeded 123 (its ``key(123)``) with G in eval
+    mode, or the ReconGAN generator's reconstructions of ``real``."""
+    if not _plots_available(cfg, log):
+        return
+    g = g_state.model
+    if cfg.kind == "dcgan":
+        z = torch.randn((16, cfg.nz, 1, 1),
+                        generator=torch.Generator(device=dev).manual_seed(123), device=dev)
+        was_training = g.training
+        g.eval()
+        try:
+            fake, title = g(z), f"{cfg.name} samples"
+        finally:
+            g.train(was_training)
+    else:
+        fake, title = g(real)[:, :1], f"{cfg.name} reconstructions"
+    plots.save_image_grid(np.moveaxis(fake.float().cpu().numpy(), 1, -1), os.path.join(
+        workdir, f"samples_{cfg.name}.png"), nrow=4, title=title)
+
+
 def _run_segmentation(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
                       seed: int, workdir: Optional[str], log, dev: torch.device,
                       val_batches: int = 12) -> Dict:
@@ -209,6 +262,8 @@ def _run_segmentation(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
     if ckpt is not None:
         ckpt.wait()
         ckpt.close()
+    if workdir:
+        _save_curves(cfg, history, workdir, log)
     return {"history": history, "best_dice": best, "state": state}
 
 
@@ -293,6 +348,8 @@ def _run_segmentation_chunked(cfg: ExperimentConfig, steps_per_epoch: int,
     if ckpt is not None:
         ckpt.wait()
         ckpt.close()
+    if workdir:
+        _save_curves(cfg, history, workdir, log)
     return {"history": history, "best_dice": best, "state": state,
             "resumed_from": start_epoch, "timing": timing}
 
@@ -387,9 +444,11 @@ def _final_fid(cfg: ExperimentConfig, g_state, d_state, fid_reals, dev) -> float
 
 
 def _run_gan(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int, seed: int,
-             log, dev: torch.device) -> Dict:
+             workdir: Optional[str], log, dev: torch.device) -> Dict:
     """Per-step GAN training on host batches of ``_slices_iter``; the
-    losses of an epoch are read once. DCGAN ends with its FID."""
+    losses of an epoch are read once. DCGAN ends with its FID; with a
+    ``workdir`` the run ends with its sample grid (a ReconGAN's of the
+    next host batch)."""
     from mvtb_tpu_torch.train.gan import dcgan_step, recon_gan_step, sample_recon_draws
 
     g_state, d_state = _gan_states(cfg, seed, dev)
@@ -418,6 +477,9 @@ def _run_gan(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int, seed: int
     if cfg.kind == "dcgan":
         result["fid"] = _final_fid(cfg, g_state, d_state, _fid_reals(cfg, seed), dev)
         log(f"[{cfg.name}] frozen-encoder FID {result['fid']:.2f}")
+    if workdir:
+        real = None if cfg.kind == "dcgan" else torch.from_numpy(next(data_it)).to(dev)
+        _save_samples(cfg, g_state, real, workdir, log, dev)
     return result
 
 
@@ -509,15 +571,95 @@ def _run_gan_chunked(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
             fid_reals = _fid_reals(cfg, seed)
         result["fid"] = _final_fid(cfg, g_state, d_state, fid_reals, dev)
         log(f"[{cfg.name}] frozen-encoder FID {result['fid']:.2f}")
+    if workdir:
+        _save_samples(cfg, g_state, pool_arr[:cfg.batch_size], workdir, log, dev)
     return result
 
 
-def run_domain_experiment(config: Union[str, ExperimentConfig], **kwargs) -> Dict:
-    """Not ported yet: the hospital-domain protocol needs the data loaders
-    and the evaluation harness."""
-    raise NotImplementedError(
-        "run_domain_experiment: ROADMAP.md section 1, item 5 (with the data "
-        "loaders of item 4 and the evaluation harness of item 3)")
+def run_domain_experiment(config: Union[str, ExperimentConfig], *,
+                          epochs: Optional[int] = None,
+                          steps_per_epoch: int = 8, seed: int = 0,
+                          n_per_hospital: int = 8,
+                          workdir: Optional[str] = None,
+                          verbose: bool = True, device: DeviceLike = None) -> Dict:
+    """Hold-out-hospital experiment: train on 3 domains, evaluate per domain
+    and on the held-out fourth, report the generalization gap (the TCGA
+    institutional-distribution protocol, ``baseline_domain.py`` +
+    ``TCGA_hospital_distribution_test.ipynb``), step for step as the JAX
+    package's.
+
+    The data is :func:`~mvtb_tpu_torch.data.tcga.domain_loaders` at the
+    config's spatial size and batch size (``n_per_hospital`` volumes a
+    hospital, seeds ``seed + i``; the holdout at ``seed + 99``). The UNet
+    comes from ``seed``; each epoch runs up to ``steps_per_epoch`` steps of
+    :func:`~mvtb_tpu_torch.train.seg.seg_train_step` over the shuffled
+    train loader, the stylization draws from one generator seeded
+    ``seed + 1``, the losses read once an epoch. The model is then scored by
+    :class:`~mvtb_tpu_torch.eval.harness.ModelEvaluation` on each
+    hospital's validation split and the holdout, under ``val_stylize``
+    when the config has one (:class:`~mvtb_tpu_torch.data.pipeline.
+    StylizedLoader` seeded ``seed``), or on the held-in hospitals only for
+    an ``in_dist_val`` config (the gap is then NaN).
+
+    Returns ``{"losses", "eval_dict", "gap", "state"}``. At ``workdir`` it
+    writes ``{name}_domain.json`` / ``.pickle`` (the evaluation record)
+    and ``{name}_gap.json``. ``device=None`` means ``"cuda"`` and raises
+    without a card.
+    """
+    cfg = get_config(config) if isinstance(config, str) else config
+    dev = resolve_device(device)
+    epochs = cfg.epochs if epochs is None else epochs
+    log = print if verbose else (lambda *_: None)
+
+    train_loader, val_loaders = domain_loaders(
+        batch_size=cfg.batch_size, n_per_hospital=n_per_hospital, seed=seed,
+        spatial=cfg.spatial)
+    state = _seg_state(cfg, seed, dev)
+
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    losses = []
+    for epoch in range(epochs):
+        epoch_losses = []
+        for batch in train_loader:
+            epoch_losses.append(seg_train_step(
+                state, torch.from_numpy(batch["image"]), torch.from_numpy(batch["label"]),
+                cfg.train_stylize, generator=generator, device=dev))
+            if len(epoch_losses) >= steps_per_epoch:
+                break
+        losses += torch.stack(epoch_losses).float().cpu().tolist()  # one read an epoch
+        log(f"[{cfg.name}|domain] epoch {epoch + 1}/{epochs} "
+            f"loss {losses[-1]:.4f}")
+
+    ev = ModelEvaluation(state.model, out_channels=1, instance_name=cfg.name, device=dev)
+    if cfg.in_dist_val:
+        # the …_GD_inDist protocol: validate on the training hospitals only
+        val_loaders = {k: v for k, v in val_loaders.items() if k != "holdout"}
+    if cfg.val_stylize is not None:
+        # the reference's domain val_transform includes the stylization
+        # (gibbs15_domain.py:120-136), so each model is scored under its own
+        # filtering
+        val_loaders = {k: StylizedLoader(v, cfg.val_stylize, seed, device=dev)
+                       for k, v in val_loaders.items()}
+    for name, loader in val_loaders.items():
+        ev.add_eval(name, loader)
+    if cfg.in_dist_val:
+        in_vals = [float(v) for v in ev.eval_dict.values()]
+        mean = float(np.mean(in_vals)) if in_vals else float("nan")
+        gap = {"in_dist_mean": mean, "holdout": float("nan"),
+               "gap": float("nan"), "normalized_gap": float("nan")}
+    else:
+        gap = generalization_gap({k: float(v) for k, v in ev.eval_dict.items()})
+    log(f"[{cfg.name}|domain] in-dist {gap['in_dist_mean']:.4f} "
+        f"holdout {gap['holdout']:.4f} gap {gap['gap']:.4f}")
+
+    result = {"losses": losses, "eval_dict": dict(ev.eval_dict), "gap": gap,
+              "state": state}
+    if workdir:
+        os.makedirs(workdir, exist_ok=True)
+        ev.save(os.path.join(workdir, f"{cfg.name}_domain"))
+        with open(os.path.join(workdir, f"{cfg.name}_gap.json"), "w") as f:
+            json.dump(gap, f, indent=2)
+    return result
 
 
 def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
@@ -545,9 +687,9 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
 
     At ``workdir`` the run writes ``ckpt/`` (``{epoch}.pt`` and its
     metrics), ``history.json`` (chunked runs) and ``{name}_result.json``,
-    as the JAX package does. The learning-curve and GAN sample PNGs come
-    with ``eval/plots.py`` (ROADMAP.md section 1, item 3): nothing on this
-    path imports matplotlib.
+    as the JAX package does, and its PNGs (learning and per-class curves,
+    or the GAN sample grid) when matplotlib can be imported; otherwise it
+    logs one line saying they were skipped.
 
     Random numbers: the sampling of pool rows is the JAX package's
     (``RandomState(seed + 7)`` in chunked runs, replayed up to a resume
@@ -586,7 +728,7 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
                                   pool=max(pool, 256), resume=resume,
                                   ckpt_every=ckpt_every)
     elif cfg.kind in GAN_KINDS:
-        result = _run_gan(cfg, steps_per_epoch, epochs, seed, log, dev)
+        result = _run_gan(cfg, steps_per_epoch, epochs, seed, workdir, log, dev)
     elif chunked:
         result = _run_segmentation_chunked(cfg, steps_per_epoch, epochs, seed,
                                            workdir, log, dev,

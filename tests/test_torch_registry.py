@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from mvtb_tpu.experiments import __main__ as jmain
 from mvtb_tpu.experiments import registry as jreg
@@ -112,11 +113,13 @@ def test_cli_run_prints_one_summary_line(tiny_gibbs, capsys, tmp_path, extra):
             assert json.load(f)["epochs"] == [1, 2]
 
 
-def test_cli_unported_commands_name_their_roadmap_item():
-    """``domain`` still names its ROADMAP item; ``--mitigated`` (ported) is
-    refused, as by the JAX CLI, off a GAN config and off ``run``."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmain.main(["domain", "baseline_domain", "--device", "cpu"])
+def test_cli_unported_commands_name_their_roadmap_item(monkeypatch):
+    """``domain`` is ported (tests/test_torch_domain.py): without a card it
+    reaches the device check; ``--mitigated`` (ported) is refused, as by
+    the JAX CLI, off a GAN config and off ``run``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmain.main(["domain", "baseline_domain"])
     for argv in (["run", "baseline", "--mitigated", "--device", "cpu"],
                  ["domain", "baseline_domain", "--mitigated", "--device", "cpu"]):
         with pytest.raises(SystemExit):

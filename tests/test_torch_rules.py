@@ -41,7 +41,9 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.models.dcgan, mvtb_tpu_torch.models.resunet_gan, "
             "mvtb_tpu_torch.eval.fid, mvtb_tpu_torch.train.gan, "
             "mvtb_tpu_torch.train.chunked, mvtb_tpu_torch.experiments.runner, "
-            "chip_smoke\n"
+            "mvtb_tpu_torch.experiments.manifest, mvtb_tpu_torch.eval.harness, "
+            "mvtb_tpu_torch.eval.sliding_window, mvtb_tpu_torch.eval.plots, "
+            "mvtb_tpu_torch.data, mvtb_tpu_torch.native, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -104,6 +106,18 @@ def test_entry_points_default_to_the_card(no_card):
     for make in (lambda: Generator(8, 2, 1), lambda: Discriminator(1, 2),
                  lambda: ResUnetGenerator(1, 2), lambda: ResUnetDiscriminator(1, 2),
                  lambda: FrozenFeatureEncoder(1), lambda: sample_recon_draws("zf", (1, 1, 8, 8))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # the domain protocol and the evaluation it rests on
+    from mvtb_tpu_torch.data import Loader, StylizedLoader
+    from mvtb_tpu_torch.eval import ModelEvaluation, sliding_window_inference
+    from mvtb_tpu_torch.experiments import run_domain_experiment
+    loader = Loader([{"image": x[0].numpy(), "label": x[0].numpy()}])
+    for make in (lambda: run_domain_experiment("baseline_domain"),
+                 lambda: ModelEvaluation(model),
+                 lambda: ModelEvaluation.from_checkpoint("no-such-dir"),
+                 lambda: sliding_window_inference(x, (4, 4, 4), model),
+                 lambda: StylizedLoader(loader, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
