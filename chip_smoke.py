@@ -136,7 +136,27 @@ order, each fatal on failure:
    (``BratsValIterDataset``, two corruptions) through ``ModelEvaluation``
    with a full-width 4 -> 3 UNet and the sliding window; whether the native
    library built;
-12. timing with CUDA events: the plane kernel, its plain version and
+12. learnable phase (learnable stylization through ``run()`` at the
+   registry's widths: 1 -> 1, UNet 16..256 in float32, batch 2,
+   128x128x64; cut in depth to 3 epochs of 8 steps over a pool of 8): one
+   step each of the soft Gibbs layer and the spike layer through
+   ``learnable_train_step``, of the hard mask through ``fd_train_step``, and
+   of the hard mask at alpha = 0 (an all-zero volume), card against CPU at
+   1x1x32^3 with a UNet (8, 16, 32) and deterministic cuDNN (in float64
+   the gradients within 1e-4 of the largest and the stylization parameter
+   after the step within 1e-6, the float32 spreads reported; at alpha = 0
+   in float32, finite, and held with zero conv biases); ``gibbs0p7_layer_grad``,
+   ``gibbs0p7_layer_GD`` and ``spikes11_layer_GD`` chunked (finite
+   trajectories, no hand-written kernel: the layers run ``torch.fft``, ms a
+   step and steps/s); ``gibbs0p7_layer_GD`` killed and resumed against an
+   uninterrupted run with deterministic cuDNN (equal prefix and
+   trajectory); a per-step ``gibbs0p7_layer_fixed`` epoch; over single
+   chunks the host reads (none inside a chunk, the runner's one read after
+   it), the device's idle share and top kernels, and the joint step's ms
+   with TF32 on (cuDNN's float32 default) and with the autotuner;
+   ``ModelEvaluation.from_checkpoint`` with ``gibbs_unet`` and
+   ``spikes_unet`` on the runs' checkpoints (a finite Dice);
+13. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -310,6 +330,20 @@ DOMAIN_DICE_TOL = 1e-3
 SW_VOLUME, SW_ROI, SW_OVERLAP, SW_TOL = (240, 240, 155), (128, 128, 64), 0.25, 1e-5
 SW_CASES = (("b1_const", 1, "constant", 8), ("b1_gauss", 1, "gaussian", 8),
             ("b2_const", 2, "constant", 8), ("b1_const_pertile", 1, "constant", 1))
+# the learnable phase: the registry's learnable entries at full width (1 -> 1,
+# UNet 16..256, 2 residual units, float32 as the JAX models build it, batch 2,
+# 128x128x64), cut in depth only, to 3 epochs of 8 steps over a pool of 8
+LEARN_RUNS = ("gibbs0p7_layer_grad", "gibbs0p7_layer_GD", "spikes11_layer_GD")
+LEARN_FIXED = "gibbs0p7_layer_fixed"
+LEARN_EPOCHS, LEARN_STEPS, LEARN_POOL = 3, 8, 8
+LEARN_RESUME_STEPS, LEARN_FIXED_STEPS, LEARN_PROBE_STEPS = 4, 4, 3
+# card against CPU, one step at 1x1x32^3 with a UNet (8, 16, 32) in float64:
+# the gradients relative to the largest, the stylization parameter after the
+# step absolute (amsgrad's first step is +-lr whatever the gradient's size;
+# an FD step moves it by 0.02 * (l(a + h) - l(a)) / 0.01)
+LEARN_SMALL = dict(channels=(8, 16, 32), strides=(2, 2), num_res_units=2)
+LEARN_SMALL_SHAPE = (1, 1, 32, 32, 32)
+LEARN_GRAD_TOL, LEARN_STYL_TOL = 1e-4, 1e-6
 # the NIfTI path: MONAI's split keeps int(0.2 n) = 2 validation volumes and
 # the sweep's half split 1; "smooth" volumes (the textured generator takes
 # ~12 s a 4x240x240x155 volume on one host core)
@@ -2225,6 +2259,259 @@ def domain_phase(dev) -> dict:
     return res
 
 
+def _float64(model):
+    """``model`` computing in float64: its parameters and every module's
+    compute type."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    return model.double()
+
+
+def _learnable_card_vs_cpu(dev) -> dict:
+    """One step of each learnable step function at 1x1x32^3 (UNet (8, 16,
+    32)), card against CPU from the same weights, batch and spike draws,
+    deterministic cuDNN: the soft Gibbs layer and the spike layer through
+    ``learnable_train_step``, the hard mask through ``fd_train_step`` (alpha
+    0.5: its radii at a and a + h fall between grid distances), held in
+    float64, as the GAN steps are: in float32 a rounding difference can move
+    an activation across a PReLU kink, where the gradient jumps; their
+    float32 spreads are reported. Then
+    the hard mask at alpha = 0 in float32, whose all-zero volume makes every
+    first-level norm map constant: with zero conv biases the maps are
+    exactly 0 on both devices and the gradients are held (less the conv
+    biases that feed a norm, whose exact gradient 0 becomes rounding noise
+    scaled by rsqrt(eps), reported); with nonzero biases each device's
+    gradients follow its own rounding of the constant maps: finite,
+    reported."""
+    from mvtb_tpu_torch.models import GibbsUNet, SpikeLayer, SpikesUNet
+    from mvtb_tpu_torch.train import (create_learnable_state, fd_train_step,
+                                      learnable_train_step)
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(LEARN_SMALL_SHAPE, generator=g)
+    lab = (torch.rand(LEARN_SMALL_SHAPE, generator=g) < 0.3).float()
+    spike_locs = SpikeLayer.sample_locations(x, g)
+
+    def one(kind, hard, step, styl0, dtype, biases=False):
+        def make(d):
+            if kind == "gibbs":
+                return GibbsUNet(styl0, hard=hard, **LEARN_SMALL, device=d)
+            return SpikesUNet(styl0, **LEARN_SMALL, device=d)
+
+        torch.manual_seed(9)
+        cpu_model = make("cpu")
+        if biases:
+            with torch.no_grad():
+                for k, p in cpu_model.named_parameters():
+                    if k.endswith(".bias"):
+                        p.normal_(0.0, 0.01)
+        card_model = make(dev)
+        card_model.load_state_dict(cpu_model.state_dict())
+        if dtype == torch.float64:
+            cpu_model, card_model = _float64(cpu_model), _float64(card_model)
+        locs = spike_locs if kind == "spikes" else None
+
+        def run(model, d):
+            st = create_learnable_state(model, device=d)
+            args = (x.to(dtype), lab.to(dtype), None if locs is None else locs.to(d))
+            if step == "fd":
+                loss, styl = fd_train_step(st, *args, device=d)
+            else:
+                loss, styl = learnable_train_step(st, *args, device=d)
+            grads = {k: (p.grad.detach().cpu() if p.grad is not None
+                         else torch.zeros(p.shape, dtype=p.dtype))
+                     for k, p in model.named_parameters()}
+            return float(loss), float(styl), grads
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            loss_card, styl_card, g_card = run(card_model, dev)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        loss_cpu, styl_cpu, g_cpu = run(cpu_model, "cpu")
+        check(all(torch.isfinite(v).all() for v in g_card.values()),
+              f"learnable {kind} {step} {dtype}: a gradient on the card is not finite")
+        zero = _norm_fed_biases(card_model) if styl0 == 0.0 else set()
+        gmax = max(float(v.abs().max()) for k, v in g_cpu.items() if k not in zero)
+        err = max(float((g_card[k] - v).abs().max()) for k, v in g_cpu.items()
+                  if k not in zero) / gmax
+        row = {"grad_err_over_max": err, "styl_abs_err": abs(styl_card - styl_cpu),
+               "styl": {"card": styl_card, "cpu": styl_cpu},
+               "loss": {"card": loss_card, "cpu": loss_cpu}, "grad_max": gmax}
+        if zero:
+            row["norm_fed_bias_grad_over_max"] = {
+                "card": max(float(g_card[k].abs().max()) for k in zero) / gmax,
+                "cpu": max(float(g_cpu[k].abs().max()) for k in zero) / gmax}
+        return row
+
+    out_ = {"tolerance": {"grad_over_max": LEARN_GRAD_TOL, "styl_abs": LEARN_STYL_TOL}}
+    for name, case in (("gibbs_soft_grad", ("gibbs", False, "grad", 0.7)),
+                       ("spikes_grad", ("spikes", False, "grad", 11.0)),
+                       ("gibbs_hard_fd", ("gibbs", True, "fd", 0.5))):
+        row = one(*case, torch.float64)
+        check(row["grad_err_over_max"] <= LEARN_GRAD_TOL and
+              row["styl_abs_err"] <= LEARN_STYL_TOL and
+              abs(row["loss"]["card"] - row["loss"]["cpu"]) <= 1e-6,
+              f"learnable {name}: card vs CPU in float64: {row}")
+        f32 = one(*case, torch.float32)
+        row["float32"] = {k: f32[k] for k in ("grad_err_over_max", "styl_abs_err", "loss")}
+        out_[name] = row
+    row = one("gibbs", True, "grad", 0.0, torch.float32)
+    check(row["grad_err_over_max"] <= LEARN_GRAD_TOL and row["styl_abs_err"] == 0.0,
+          f"learnable hard mask at alpha 0, zero biases: card vs CPU {row}")
+    out_["gibbs_hard_alpha0_zero_biases"] = row
+    out_["gibbs_hard_alpha0_random_biases"] = one("gibbs", True, "grad", 0.0, torch.float32,
+                                                  biases=True)
+    return out_
+
+
+def learnable_phase(dev) -> dict:
+    """Learnable stylization through ``run()`` at the registry's widths (1 ->
+    1, UNet 16..256, float32, batch 2, 128x128x64), cut in depth: (a) one
+    step of each step function, card against CPU; (b) ``gibbs0p7_layer_grad``
+    (soft mask, joint gradients), ``gibbs0p7_layer_GD`` (hard mask, the
+    finite-difference step: two more forwards a step) and
+    ``spikes11_layer_GD`` chunked for 3 epochs of 8 steps over a pool of 8,
+    a checkpoint every epoch: finite trajectories and losses, no
+    hand-written kernel launched (the layers are ``torch.fft``, as the JAX
+    layers are ``jnp.fft``), ms a step and steps/s over the chunks after the
+    first; (c) ``gibbs0p7_layer_GD`` killed after 1 of 2 epochs and resumed,
+    against an uninterrupted run, deterministic cuDNN: the prefix and the
+    trajectory equal; (d) a few per-step steps of ``gibbs0p7_layer_fixed``;
+    (e) over single chunks of each kind, the host reads, the device's idle
+    share and top kernels, and for the joint step the ms a step with TF32
+    on (cuDNN's float32 default) and with the autotuner; (f)
+    ``ModelEvaluation.from_checkpoint`` with ``gibbs_unet`` and
+    ``spikes_unet`` on the runs' checkpoints, scoring one batch."""
+    import tempfile
+
+    from mvtb_tpu_torch.eval import ModelEvaluation
+    from mvtb_tpu_torch.experiments import registry, runner
+    from mvtb_tpu_torch.train import chunked
+
+    cfg0 = registry.get(LEARN_RUNS[0])
+    res = {"widths": {"channels": cfg0.channels, "num_res_units": cfg0.num_res_units,
+                      "batch": cfg0.batch_size, "spatial": cfg0.spatial}}
+    t0 = time.perf_counter()
+    res["card_vs_cpu"] = _learnable_card_vs_cpu(dev)
+    res["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+
+    def drive(tmp, tag, name, **kw):
+        _zero_launch_counts()
+        r = runner.run(name, workdir=f"{tmp}/{tag}", verbose=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        r["launches"] = _launch_counts()
+        check(not any(r["launches"].values()),
+              f"{tag}: a hand-written kernel was launched: {r['launches']}")
+        check(all(math.isfinite(v) for v in r["trajectory"] + r["losses"]),
+              f"{tag}: trajectory {r['trajectory']} losses {r['losses']}")
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the three chunked runs
+        for name in LEARN_RUNS:
+            r = drive(tmp, name, name, chunked=True, epochs=LEARN_EPOCHS,
+                      steps_per_epoch=LEARN_STEPS, pool=LEARN_POOL, ckpt_every=1)
+            check(len(r["trajectory"]) == LEARN_EPOCHS * LEARN_STEPS, f"{name} trajectory")
+            t = r["timing"]
+            after = t["chunk_s"][1:]
+            res[name] = {"ms_per_step_after_first": statistics.median(after) / LEARN_STEPS * 1e3,
+                         "steps_per_s_after_first": LEARN_STEPS * len(after) / sum(after),
+                         "chunk_ms": [c * 1e3 for c in t["chunk_s"]], "pool_s": t["pool_s"],
+                         "save_ms": [v * 1e3 for v in t["save_s"]],
+                         "parameters": sum(p.numel() for p in r["state"].model.parameters()),
+                         "trajectory_first_last": [r["trajectory"][0], r["trajectory"][-1]],
+                         "losses": r["losses"], "launches": r["launches"]}
+            del r
+
+        # (c) kill and resume, deterministic cuDNN
+        torch.backends.cudnn.deterministic = True
+        try:
+            kw = dict(chunked=True, steps_per_epoch=LEARN_RESUME_STEPS, pool=LEARN_POOL,
+                      ckpt_every=1)
+            full = drive(tmp, "full", LEARN_RUNS[1], epochs=2, **kw)
+            part = drive(tmp, "part", LEARN_RUNS[1], epochs=1, **kw)
+            resumed = drive(tmp, "part", LEARN_RUNS[1], epochs=2, resume=True, **kw)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(resumed["resumed_from"] == 1, f"resumed from {resumed['resumed_from']}")
+        check(resumed["trajectory"][:LEARN_RESUME_STEPS] == part["trajectory"],
+              "the resumed prefix changed")
+        check(resumed["trajectory"] == full["trajectory"] and
+              resumed["losses"] == full["losses"],
+              f"the resumed run differs from the uninterrupted one: "
+              f"{resumed['trajectory']} {full['trajectory']}")
+        res["resume"] = {"prefix_equal": True, "trajectory_equal": True,
+                         "restore_ms": resumed["timing"]["restore_s"] * 1e3}
+        del full, part, resumed
+
+        # (d) per step
+        t0 = time.perf_counter()
+        r = drive(tmp, "fixed", LEARN_FIXED, epochs=1, steps_per_epoch=LEARN_FIXED_STEPS)
+        res[LEARN_FIXED] = {"seconds": time.perf_counter() - t0, "trajectory": r["trajectory"],
+                            "losses": r["losses"]}
+        del r
+
+        # (f) the harness on the runs' checkpoints
+        cfg = registry.get(LEARN_RUNS[0])
+        img, lbl = next(runner._data_iter(cfg, 5, cfg.batch_size))
+        harness = {}
+        for flag, name in (("gibbs_unet", LEARN_RUNS[0]), ("spikes_unet", LEARN_RUNS[2])):
+            t0 = time.perf_counter()
+            ev = ModelEvaluation.from_checkpoint(f"{tmp}/{name}/ckpt", instance_name=name,
+                                                 in_channels=1, out_channels=1, device=dev,
+                                                 **{flag: True})
+            ev.add_eval("batch", [{"image": img, "label": lbl}])
+            dice = float(ev.eval_dict["batch"])
+            check(math.isfinite(dice), f"from_checkpoint({flag}): Dice {dice}")
+            harness[flag] = {"dice": dice, "seconds": time.perf_counter() - t0}
+            del ev
+        res["harness"] = harness
+
+    # (e) over single chunks of each kind: reads, idle share, top kernels
+    probes = {}
+    for name in LEARN_RUNS:
+        cfg = registry.get(name)
+        state = runner._learnable_state(cfg, 0, dev)
+        pool_i, pool_l = runner._pool_arrays(cfg, 0, LEARN_POOL, dev)
+        idxs = torch.randint(0, LEARN_POOL, (LEARN_PROBE_STEPS, cfg.batch_size), device=dev)
+        chunk_fn = chunked.make_learnable_chunk_fn(cfg.fd_mode, cfg.train_alpha, cfg.fd_h,
+                                                   cfg.fd_lr, device=dev)
+
+        def one_chunk(epoch, chunk_fn=chunk_fn, state=state, pool_i=pool_i, pool_l=pool_l,
+                      idxs=idxs):
+            _, _, loss, traj = chunk_fn(state, runner.epoch_generator(1, epoch, dev), pool_i,
+                                        pool_l, idxs)
+            return torch.cat([loss.reshape(1), traj])  # what the runner reads
+
+        p = chunk_probe(name, one_chunk, LEARN_PROBE_STEPS)
+        # the chunk itself reads nothing; the runner's one read of its loss
+        # and trajectory is the chunk's only host read
+        check(p["host_reads_per_chunk"] == 0, f"{name}: host reads inside a chunk: {p}")
+        p["host_reads_per_chunk_with_the_result"] = p["host_reads_per_chunk"] + 1
+        probes[name] = p
+        if name == LEARN_RUNS[0]:
+            # (g) the same chunk under cuDNN settings a user may run: its
+            # float32 default (TF32), and the autotuner (TF32 off)
+            timed = {}
+            for tag, tf32, bench in (("tf32", True, False), ("benchmark", False, True)):
+                torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
+                try:
+                    one_chunk(4).cpu()  # warm (and, with the autotuner, tune)
+                    t0 = time.perf_counter()
+                    one_chunk(5).cpu()
+                    timed[tag] = (time.perf_counter() - t0) / LEARN_PROBE_STEPS * 1e3
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                    torch.backends.cudnn.benchmark = False
+            res["grad_ms_per_step_by_cudnn_setting"] = timed
+        del state, pool_i, pool_l
+        torch.cuda.empty_cache()
+    res["chunk_probe"] = probes
+    return res
+
+
 def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
     path, the runner's fast profile and the domain runs' (timed at the eval
@@ -2349,6 +2636,10 @@ def main() -> int:
     dm = domain_phase(dev)
     dm["seconds"] = time.perf_counter() - t0
     out({"domain_phase": dm, "card": smi})
+    t0 = time.perf_counter()
+    lp = learnable_phase(dev)
+    lp["seconds"] = time.perf_counter() - t0
+    out({"learnable_phase": lp, "card": smi})
 
     t0 = time.perf_counter()
     tm = timing_phase(dev)

@@ -30,6 +30,18 @@ from mvtb_tpu_torch.eval.sliding_window import sliding_window_inference
 from mvtb_tpu_torch.transforms.array import _to_numpy
 
 
+class _SeededDraws(torch.nn.Module):
+    """A ``SpikesUNet`` whose every forward draws its spikes from a
+    generator seeded 0 (the JAX harness's ``key(0)``)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x, generator=torch.Generator(device=x.device).manual_seed(0))
+
+
 class ModelEvaluation:
     """Dice evaluation record for one model across many datasets.
 
@@ -80,28 +92,35 @@ class ModelEvaluation:
                         gibbs_unet: bool = False, spikes_unet: bool = False,
                         step: Optional[int] = None,
                         device: DeviceLike = None) -> "ModelEvaluation":
-        """Restore a full-width ``UNet(in_channels, out_channels)`` from the
-        port's checkpoints (:class:`~mvtb_tpu_torch.train.checkpoint.
-        CheckpointManager`, a segmentation run's ``ckpt/``), the latest step
-        unless ``step`` is given. The framework analogue of the reference's
-        ``load_UNet`` .pth loading (``utils.py:286-311``). A JAX Orbax
-        checkpoint is not read: convert its parameters with
+        """Restore a full-width ``UNet(in_channels, out_channels)``, or with
+        ``gibbs_unet`` / ``spikes_unet`` a ``GibbsUNet`` (alpha_init 0.5,
+        the soft mask) / ``SpikesUNet`` of those channels, from the port's
+        checkpoints (:class:`~mvtb_tpu_torch.train.checkpoint.
+        CheckpointManager`, a run's ``ckpt/``), the latest step unless
+        ``step`` is given. The framework analogue of the reference's
+        ``load_UNet`` / ``load_gibbs_unet`` / ``load_spikes_unet`` .pth
+        loading (``utils.py:286-311``). The forward runs the stylization
+        layer; the spike layer's draws come from a generator seeded 0 at
+        every forward, as the JAX harness hands ``key(0)`` to each call. A
+        JAX Orbax checkpoint is not read: convert its parameters with
         :mod:`mvtb_tpu_torch.models.convert` on the caller's side."""
-        if gibbs_unet or spikes_unet:
-            raise NotImplementedError(
-                "the stylization UNets (gibbs_unet / spikes_unet): "
-                "ROADMAP.md section 1, item 6")
-        from mvtb_tpu_torch.models import UNet
+        from mvtb_tpu_torch.models import GibbsUNet, SpikesUNet, UNet
         from mvtb_tpu_torch.train.checkpoint import CheckpointManager
-        from mvtb_tpu_torch.train.seg import create_seg_state
 
         dev = resolve_device(device)
-        state = create_seg_state(UNet(in_channels, out_channels, device=dev), device=dev)
+        if gibbs_unet:
+            model = GibbsUNet(out_channels=out_channels, in_channels=in_channels, device=dev)
+        elif spikes_unet:
+            model = SpikesUNet(out_channels=out_channels, in_channels=in_channels, device=dev)
+        else:
+            model = UNet(in_channels, out_channels, device=dev)
         mgr = CheckpointManager(ckpt_dir)
-        state = mgr.restore(state, step=step)
+        mgr.restore_model(model, step=step)
         mgr.close()
-        state.model.eval()
-        return cls(state.model, instance_name=instance_name, in_channels=in_channels,
+        model.eval()
+        if spikes_unet:
+            model = _SeededDraws(model)
+        return cls(model, instance_name=instance_name, in_channels=in_channels,
                    out_channels=out_channels, device=dev)
 
     # -- dataset-level metrics ------------------------------------------------

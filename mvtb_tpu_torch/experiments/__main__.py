@@ -5,6 +5,8 @@
         --epochs 2 --steps 4 --workdir runs/gibbs12p5 [--fast] [--resume]
     python -m mvtb_tpu_torch.experiments run gibbs12p5 --device cpu ...
 
+    python -m mvtb_tpu_torch.experiments run gibbs0p7_layer_GD --chunked \
+        --epochs 4 --steps 8 --workdir runs/gibbs0p7_layer_GD [--resume]
     python -m mvtb_tpu_torch.experiments run dcgan --chunked --epochs 4 \
         --steps 8 --ckpt-every 2 --workdir runs/dcgan [--mitigated]
     python -m mvtb_tpu_torch.experiments domain gibbs15_domain --epochs 2 \
@@ -14,7 +16,7 @@ The counterpart of the JAX package's CLI (mvtb_tpu/experiments/__main__.py);
 it prints the same one summary JSON line. ``--device`` defaults to
 ``cuda``. ``--pool`` and ``--val-batches`` set ``run``'s pool and held-out
 sizes; ``--ckpt-every`` the checkpoint (and DCGAN FID) cadence of chunked
-GAN runs; ``--mitigated`` runs a GAN config's mitigation profile
+GAN and learnable runs; ``--mitigated`` runs a GAN config's mitigation profile
 (``registry.mitigated``: one-sided label smoothing 0.9). ``domain`` runs
 ``run_domain_experiment`` with ``--epochs``, ``--steps``, ``--seed``,
 ``--workdir``, ``--quiet`` and ``--device``, as the JAX CLI passes them
@@ -61,7 +63,8 @@ def main(argv=None) -> int:
                        help="GAN-collapse mitigation profile: one-sided "
                             "label smoothing 0.9 (registry.mitigated)")
         p.add_argument("--ckpt-every", type=int, default=None,
-                       help="checkpoint/FID cadence in epochs (chunked GAN runs)")
+                       help="checkpoint/FID cadence in epochs (chunked GAN "
+                            "and learnable runs)")
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the plain "
                             "versions of the kernels)")

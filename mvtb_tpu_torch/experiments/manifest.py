@@ -7,9 +7,7 @@ copied).
 entry that reproduces it (the port's registry holds the JAX package's
 entries, field for field). ``LIBRARY_MAP`` maps the library modules that
 are components rather than experiments to the port's module that rebuilds
-them (values starting with ``mvtb_tpu_torch``), or, where the port has no
-counterpart yet, to the ROADMAP item that queues it (values starting with
-``ROADMAP.md``).
+them.
 """
 
 from __future__ import annotations
@@ -250,17 +248,18 @@ SCRIPT_MAP = {
 }
 
 # Library/support modules: components, not experiments. Values name the
-# port's module that rebuilds the capability, or the ROADMAP item that
-# queues it.
+# port's module that rebuilds the capability.
 LIBRARY_MAP = {
     "10_scripts/300_instutional_distribution/350_stylized_layers/"
     "351_adversarial_gibbs/networks.py": "mvtb_tpu_torch.models.resunet_gan",
     "10_scripts/300_instutional_distribution/350_stylized_layers/"
     "351_adversarial_gibbs/tcga_data.py": "mvtb_tpu_torch.data.tcga",
     # 2x2 rotation-matrix gradient toy exploring grads through a geometric
-    # parameter (the precursor of the soft Gibbs mask)
+    # parameter; what it led to is the soft Gibbs mask of the learnable
+    # layers (the JAX package's value is its example, and examples are not
+    # ported)
     "10_scripts/300_instutional_distribution/350_stylized_layers/rotate.py":
-        "ROADMAP.md section 1, item 6",
+        "mvtb_tpu_torch.models.layers",
     "50_reconstruction/__init__.py": "mvtb_tpu_torch",
     "50_reconstruction/data/__init__.py": "mvtb_tpu_torch.data",
     "50_reconstruction/dcgan/__init__.py": "mvtb_tpu_torch.models.dcgan",

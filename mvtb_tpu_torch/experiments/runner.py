@@ -1,25 +1,24 @@
 """Config-driven experiment runner (counterpart of
-mvtb_tpu/experiments/runner.py): the segmentation and GAN families and the
-hospital-domain protocol.
+mvtb_tpu/experiments/runner.py): the segmentation, learnable-stylization
+and GAN families and the hospital-domain protocol.
 
 :func:`run` executes a registry entry end to end, the replacement for the
 reference's per-script training loops: the segmentation kind (the T1
 template ``baseline.py:232-318`` and its clones) with validation every
-``val_interval`` epochs over a fixed held-out set, and the GAN kinds
-(``dcgan``, ``recon_gan``, ``recon_gan_freq``, ``gibbs_gan``;
-``50_reconstruction/``, ``351_adversarial_gibbs/``) with a frozen-encoder
-FID for DCGAN. Each runs per step, or chunked over a pool that lives on the
-card, with full-state checkpoints and resume. Data comes from
-:mod:`mvtb_tpu_torch.data.synthetic`. :func:`run_domain_experiment` runs
-the TCGA institutional-distribution protocol: train on three synthetic
-hospitals, score each and a held-out fourth, report the generalization gap.
-
-Not ported yet, raising ``NotImplementedError`` naming their ROADMAP item:
-the learnable-stylization kinds (section 1, item 6).
+``val_interval`` epochs over a fixed held-out set, the learnable kinds
+(``learnable_gibbs``, ``learnable_spikes``; ``350_stylized_layers/``) with
+their stylization parameter's trajectory, and the GAN kinds (``dcgan``,
+``recon_gan``, ``recon_gan_freq``, ``gibbs_gan``; ``50_reconstruction/``,
+``351_adversarial_gibbs/``) with a frozen-encoder FID for DCGAN. Each runs
+per step, or chunked over a pool that lives on the card, with full-state
+checkpoints and resume. Data comes from :mod:`mvtb_tpu_torch.data.synthetic`.
+:func:`run_domain_experiment` runs the TCGA institutional-distribution
+protocol: train on three synthetic hospitals, score each and a held-out
+fourth, report the generalization gap.
 
 With a ``workdir``, runs write the JAX runner's PNGs (learning and
-per-class curves, GAN sample grids) when matplotlib can be imported, and
-log one line saying they were skipped when it cannot.
+per-class curves, alpha trajectories, GAN sample grids) when matplotlib can
+be imported, and log one line saying they were skipped when it cannot.
 """
 
 from __future__ import annotations
@@ -51,16 +50,11 @@ from mvtb_tpu_torch.train.seg import (EpochMetrics, SegState, create_seg_state,
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# where the experiment kinds the runner does not run yet are queued
-_TODO_KINDS = {
-    "learnable_gibbs": "ROADMAP.md section 1, item 6 (learnable stylization)",
-    "learnable_spikes": "ROADMAP.md section 1, item 6 (learnable stylization)",
-}
-
 GAN_KINDS = ("dcgan", "recon_gan", "recon_gan_freq", "gibbs_gan")
+LEARNABLE_KINDS = ("learnable_gibbs", "learnable_spikes")
 
 # the keys of {name}_result.json, as the JAX package writes them
-_RESULT_KEYS = ("history", "best_dice", "wall_time_s", "fid")
+_RESULT_KEYS = ("history", "best_dice", "trajectory", "losses", "wall_time_s", "fid")
 
 
 def _data_iter(cfg: ExperimentConfig, seed: int, batch_size: int,
@@ -401,6 +395,150 @@ def _restore_chunked(ckpt, template, history, hist_path, resume, log, name,
     return state, start_epoch, history
 
 
+def _learnable_state(cfg: ExperimentConfig, seed: int, dev: torch.device,
+                     transfer_params=None) -> SegState:
+    """The run's ``GibbsUNet`` (``alpha0``, the hard mask in ``fd_mode``) or
+    ``SpikesUNet`` (``spike_intensity``, learnable) at the config's widths,
+    its UNet in float32 as the JAX runner builds it, initialised from
+    ``seed`` (generators forked), and its optimizer
+    (:func:`~mvtb_tpu_torch.train.learnable.create_learnable_state`)."""
+    from mvtb_tpu_torch.models.layers import GibbsUNet, SpikesUNet
+    from mvtb_tpu_torch.train.learnable import create_learnable_state
+
+    widths = dict(out_channels=cfg.out_channels, channels=cfg.channels,
+                  strides=cfg.strides, num_res_units=cfg.num_res_units,
+                  in_channels=cfg.in_channels, device=dev)
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(seed)
+        if cfg.kind == "learnable_gibbs":
+            model = GibbsUNet(alpha_init=cfg.alpha0, hard=cfg.fd_mode, **widths)
+        else:
+            model = SpikesUNet(intensity=cfg.spike_intensity, learnable=True, **widths)
+    return create_learnable_state(model, freeze_unet=cfg.freeze_unet,
+                                  unet_optimizer=cfg.unet_optimizer,
+                                  transfer_params=transfer_params, lr=cfg.lr,
+                                  weight_decay=cfg.weight_decay, device=dev)
+
+
+def _save_trajectory(cfg: ExperimentConfig, trajectory, workdir: str, log) -> None:
+    """``gibbs_trajectory_{name}.txt`` and, where matplotlib imports,
+    ``trajectory_{name}.png``, as the JAX runner writes them."""
+    np.savetxt(os.path.join(workdir, f"gibbs_trajectory_{cfg.name}.txt"),
+               np.asarray(trajectory))
+    if _plots_available(cfg, log):
+        plots.save_alpha_trajectory(trajectory, os.path.join(
+            workdir, f"trajectory_{cfg.name}.png"), title=cfg.name)
+
+
+def _run_learnable(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int, seed: int,
+                   workdir: Optional[str], log, dev: torch.device) -> Dict:
+    """Per-step learnable-stylization training on prefetched host batches;
+    the spike draws from one generator seeded ``seed + 1``; the losses and
+    the trajectory of an epoch read once. The UNet is warm-started from
+    ``cfg.transfer_from`` only when that is a checkpoint directory on disk
+    (the registry's values name runs, which document the lineage only)."""
+    from mvtb_tpu_torch.train.learnable import fd_train_step, learnable_train_step
+
+    transfer_params = None
+    if cfg.transfer_from and os.path.isdir(cfg.transfer_from):
+        transfer_params = ModelEvaluation.from_checkpoint(
+            cfg.transfer_from, in_channels=cfg.in_channels, out_channels=cfg.out_channels,
+            device=dev).model.state_dict()
+    state = _learnable_state(cfg, seed, dev, transfer_params)
+    train_it = device_prefetch(_data_iter(cfg, seed, cfg.batch_size), size=2, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    trajectory, losses = [], []
+    for epoch in range(epochs):
+        rows = []
+        for _ in range(steps_per_epoch):
+            img, lbl = next(train_it)
+            if cfg.fd_mode:
+                row = fd_train_step(state, img, lbl, generator=generator, h=cfg.fd_h,
+                                    lr=cfg.fd_lr, device=dev)
+            else:
+                row = learnable_train_step(state, img, lbl, generator=generator,
+                                           train_alpha=cfg.train_alpha, device=dev)
+            rows.append(torch.stack(row).float())
+        epoch_losses, epoch_alphas = torch.stack(rows, dim=1).cpu().tolist()  # one read
+        losses += epoch_losses
+        trajectory += epoch_alphas
+        log(f"[{cfg.name}] epoch {epoch + 1}/{epochs} "
+            f"loss {losses[-1]:.4f} alpha {trajectory[-1]:.4f}")
+    if workdir:
+        _save_trajectory(cfg, trajectory, workdir, log)
+    return {"trajectory": trajectory, "losses": losses, "state": state}
+
+
+def _run_learnable_chunked(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
+                           seed: int, workdir: Optional[str], log, dev: torch.device,
+                           pool: int = 24, resume: bool = False,
+                           ckpt_every: Optional[int] = None) -> Dict:
+    """Reference-scale learnable-stylization training, one chunk (one host
+    read: the mean loss and the trajectory together) per epoch over a pool
+    on the card, with full-state checkpoints every ``ckpt_every`` epochs
+    (default ``val_interval``; the newest 3 kept), the history written
+    every epoch, and resume with continuous loss and trajectory curves.
+    As in the JAX runner, no UNet is transferred here. The result's
+    ``timing`` holds host seconds: ``pool_s``, ``restore_s`` (None on a
+    fresh start), and per epoch or cadence ``chunk_s`` (the chunk and its
+    read) and ``save_s``."""
+    from mvtb_tpu_torch.train.chunked import make_learnable_chunk_fn
+
+    state = _learnable_state(cfg, seed, dev)
+    t = time.perf_counter()
+    pool_i, pool_l = _pool_arrays(cfg, seed, pool, dev)
+    timing = {"pool_s": time.perf_counter() - t, "restore_s": None,
+              "chunk_s": [], "save_s": []}
+    chunk_fn = make_learnable_chunk_fn(cfg.fd_mode, train_alpha=cfg.train_alpha,
+                                       fd_h=cfg.fd_h, fd_lr=cfg.fd_lr, device=dev)
+
+    ckpt = None
+    hist_path = os.path.join(workdir, "history.json") if workdir else None
+    if workdir:
+        ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=3)
+    t = time.perf_counter()
+    state, start_epoch, history = _restore_chunked(
+        ckpt, state, {"loss": [], "trajectory": [], "epochs": []}, hist_path, resume,
+        log, cfg.name, steps_per_epoch, per_epoch_keys=("loss",),
+        per_step_keys=("trajectory",))
+    if start_epoch:
+        timing["restore_s"] = time.perf_counter() - t
+
+    rng = np.random.RandomState(seed + 7)
+    for _ in range(start_epoch):
+        rng.randint(0, pool, (steps_per_epoch, cfg.batch_size))
+    every = ckpt_every or cfg.val_interval
+    t0 = time.perf_counter()
+    for epoch in range(start_epoch, epochs):
+        t = time.perf_counter()
+        idxs = torch.from_numpy(rng.randint(0, pool, (steps_per_epoch, cfg.batch_size)))
+        state, _, loss, traj = chunk_fn(state, epoch_generator(seed + 1, epoch, dev),
+                                        pool_i, pool_l, idxs.to(dev))
+        row = torch.cat([loss.reshape(1), traj]).cpu().tolist()  # the epoch's one host read
+        timing["chunk_s"].append(time.perf_counter() - t)
+        history["loss"].append(row[0])
+        history["trajectory"] += row[1:]
+        history["epochs"].append(epoch + 1)
+        log(f"[{cfg.name}] epoch {epoch + 1}/{epochs} "
+            f"loss {row[0]:.4f} alpha {row[-1]:.4f} "
+            f"({(epoch + 1 - start_epoch) * steps_per_epoch / max(time.perf_counter() - t0, 1e-9):.1f} step/s)")
+        if ckpt is not None and (epoch + 1) % every == 0:
+            t = time.perf_counter()
+            ckpt.save(epoch + 1, state)
+            timing["save_s"].append(time.perf_counter() - t)
+        if hist_path:
+            with open(hist_path, "w") as f:
+                json.dump(history, f)
+    if ckpt is not None:
+        ckpt.wait()
+        ckpt.close()
+    if workdir:
+        _save_trajectory(cfg, history["trajectory"], workdir, log)
+    return {"trajectory": history["trajectory"], "losses": history["loss"],
+            "history": history, "state": state, "resumed_from": start_epoch,
+            "timing": timing}
+
+
 def _gan_states(cfg: ExperimentConfig, seed: int, dev: torch.device):
     """The run's (G, D) :class:`~mvtb_tpu_torch.train.gan.GANState` pair:
     the DCGAN pair for ``dcgan``, else the ReconGAN pair (width
@@ -668,16 +806,21 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         val_batches: int = 12, chunked: bool = False, resume: bool = False,
         pool: int = 48, fast: bool = False, device: DeviceLike = None,
         ckpt_every: Optional[int] = None) -> Dict:
-    """Run one segmentation or GAN experiment end to end; returns the
-    history and the final state(s): a segmentation run's best mean Dice and
-    ``state``, a GAN run's ``g_state`` and ``d_state`` (and a DCGAN's
-    ``fid``); chunked runs also ``resumed_from`` and ``timing``.
+    """Run one segmentation, learnable-stylization or GAN experiment end to
+    end; returns the history and the final state(s): a segmentation run's
+    best mean Dice and ``state``, a learnable run's per-step ``trajectory``
+    of its stylization parameter, ``losses`` (per epoch when chunked, per
+    step otherwise) and ``state``, a GAN run's ``g_state`` and ``d_state``
+    (and a DCGAN's ``fid``); chunked runs also ``resumed_from`` and
+    ``timing``.
 
     ``epochs`` overrides the config (the registry holds the reference's
     full training lengths). ``val_batches`` sizes the fixed held-out set.
     ``chunked=True`` runs one chunk (one host read) per epoch over a
     ``pool``-sample pool on the card; ``resume=True`` continues a chunked
-    run from the latest checkpoint in ``workdir``. A chunked GAN run takes a
+    run from the latest checkpoint in ``workdir``. A chunked learnable run
+    takes a pool of at most 24 samples and checkpoints every ``ckpt_every``
+    epochs (default ``val_interval``). A chunked GAN run takes a
     pool of at least 256 slices, and checkpoints (and, for DCGAN, scores
     its FID) every ``ckpt_every`` epochs (default ``max(val_interval,
     5)``). ``fast=True`` applies
@@ -687,16 +830,19 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
 
     At ``workdir`` the run writes ``ckpt/`` (``{epoch}.pt`` and its
     metrics), ``history.json`` (chunked runs) and ``{name}_result.json``,
-    as the JAX package does, and its PNGs (learning and per-class curves,
-    or the GAN sample grid) when matplotlib can be imported; otherwise it
-    logs one line saying they were skipped.
+    as the JAX package does, a learnable run its
+    ``gibbs_trajectory_{name}.txt``, and its PNGs (learning and per-class
+    curves, the trajectory, or the GAN sample grid) when matplotlib can be
+    imported; otherwise it logs one line saying they were skipped.
 
     Random numbers: the sampling of pool rows is the JAX package's
     (``RandomState(seed + 7)`` in chunked runs, replayed up to a resume
     point); the stylization draws of epoch ``e`` come from
     :func:`epoch_generator` ``(seed, e)`` in training and ``(seed + 2, e)``
     in validation, and in per-step runs from one generator seeded
-    ``seed + 1``. The model is initialised from ``seed``. A GAN run's pool
+    ``seed + 1``. The model is initialised from ``seed``. A learnable
+    run's spike draws come from :func:`epoch_generator` ``(seed + 1, e)``
+    (chunked) or one generator seeded ``seed + 1`` (per step). A GAN run's pool
     rows are drawn the same way; its z and compress draws of epoch ``e``
     come from :func:`epoch_generator` ``(seed + 1, e)`` (chunked) or one
     generator seeded ``seed + 1`` (per step).
@@ -712,9 +858,7 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
     cfg = get_config(config) if isinstance(config, str) else config
     if fast:
         cfg = fast_science(cfg)
-    if cfg.kind in _TODO_KINDS:
-        raise NotImplementedError(f"experiment kind {cfg.kind!r}: {_TODO_KINDS[cfg.kind]}")
-    if cfg.kind != "segmentation" and cfg.kind not in GAN_KINDS:
+    if cfg.kind not in ("segmentation",) + LEARNABLE_KINDS + GAN_KINDS:
         raise ValueError(f"unknown experiment kind {cfg.kind}")
     dev = resolve_device(device)
     epochs = cfg.epochs if epochs is None else epochs
@@ -729,6 +873,12 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
                                   ckpt_every=ckpt_every)
     elif cfg.kind in GAN_KINDS:
         result = _run_gan(cfg, steps_per_epoch, epochs, seed, workdir, log, dev)
+    elif cfg.kind in LEARNABLE_KINDS and chunked:
+        result = _run_learnable_chunked(cfg, steps_per_epoch, epochs, seed, workdir, log,
+                                        dev, pool=min(pool, 24), resume=resume,
+                                        ckpt_every=ckpt_every)
+    elif cfg.kind in LEARNABLE_KINDS:
+        result = _run_learnable(cfg, steps_per_epoch, epochs, seed, workdir, log, dev)
     elif chunked:
         result = _run_segmentation_chunked(cfg, steps_per_epoch, epochs, seed,
                                            workdir, log, dev,

@@ -94,3 +94,15 @@ def fid_encoder_weights_from_flax(params: Mapping) -> Sequence[torch.Tensor]:
     tree = params.get("params", params)
     sd = params_from_flax(tree)
     return [sd[f"Conv_{i}.weight"] for i in range(len(tree))]
+
+
+def learnable_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``GibbsUNet`` (``{"gibbs": {"alpha"}, "unet": ...}``) or
+    ``SpikesUNet`` (``{"spike": {"intensity"}, "unet": ...}``) params tree
+    -> state_dict of :mod:`.layers`' module of the same name."""
+    out = {f"unet.{k}": v for k, v in unet_params_from_flax(params["unet"]).items()}
+    for layer, leaf in (("gibbs", "alpha"), ("spike", "intensity")):
+        if layer in params:
+            out[f"{layer}.{leaf}"] = torch.from_numpy(
+                np.array(params[layer][leaf], dtype=np.float32, copy=True).reshape(1))
+    return out

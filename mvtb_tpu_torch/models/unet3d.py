@@ -135,8 +135,9 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ConvTranspose_0(x) if self.transposed else self.Conv_0(x)
         if not self.conv_only:
-            # flax GroupNorm(dtype=...): float32 statistics, output in dtype
-            x = _instance_norm(x.to(torch.float32)).to(self.dtype)
+            # flax GroupNorm(dtype=...): float32 statistics (float64 kept),
+            # output in dtype
+            x = _instance_norm(x.to(torch.promote_types(x.dtype, torch.float32))).to(self.dtype)
             # flax PReLU: the slope cast to the input's type
             slope = self.PReLU_0.weight.to(x.dtype)
             x = torch.where(x >= 0, x, slope * x)

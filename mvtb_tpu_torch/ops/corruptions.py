@@ -113,12 +113,18 @@ def kspace_spike(x: torch.Tensor, locs: Sequence[Tuple[int, ...]],
 def kspace_spike_random(x: torch.Tensor, generator: Optional[torch.Generator],
                         intensity_range: Tuple[float, float],
                         channel_wise: bool = True,
-                        n_dims: Optional[int] = None) -> torch.Tensor:
+                        n_dims: Optional[int] = None,
+                        locs: Optional[Sequence[torch.Tensor]] = None,
+                        u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One random spike per channel (``channel_wise``) or one shared spatial
     location, each with a log-intensity uniform in ``intensity_range``: the
     on-device analogue of ``RandKSpaceSpikeNoise._randomize`` (FO:1087-1103).
     ``x`` is (C, *spatial); ``generator`` lives on ``x``'s device (None:
-    PyTorch's default generator there)."""
+    PyTorch's default generator there).
+
+    ``locs`` (one integer tensor an axis, of shape (C,) or, shared, (1,))
+    and ``u`` (the value's uniform) replace those draws. The bounds may be
+    tensors: the written value carries their gradient (1 for ``lo = hi``)."""
     nd = _default_n_dims(x, n_dims)
     if x.ndim != nd + 1:
         raise ValueError("kspace_spike_random expects (C, *spatial) input.")
@@ -128,13 +134,16 @@ def kspace_spike_random(x: torch.Tensor, generator: Optional[torch.Generator],
     phase = torch.angle(k)
     lo, hi = intensity_range
     width = (C,) if channel_wise else ()
-    locs = tuple(torch.randint(0, spatial[d], width, generator=generator, device=dev)
-                 for d in range(nd))
-    vals = lo + (hi - lo) * _uniform(width, log_abs.dtype, generator, dev)
+    if locs is None:
+        locs = tuple(torch.randint(0, spatial[d], width, generator=generator, device=dev)
+                     for d in range(nd))
+    if u is None:
+        u = _uniform(width, log_abs.dtype, generator, dev)
+    vals = lo + (hi - lo) * u
     if channel_wise:
-        log_abs[(torch.arange(C, device=dev),) + locs] = vals
+        log_abs[(torch.arange(C, device=dev),) + tuple(locs)] = vals
     else:
-        log_abs[(slice(None),) + locs] = vals
+        log_abs[(slice(None),) + tuple(locs)] = vals
     return ifft_shifted_real(from_polar(torch.exp(log_abs), phase), nd)
 
 

@@ -42,10 +42,10 @@ def _dist_sq_grid(spatial_shape: Tuple[int, ...], center,
 
 
 def _param(value, device: DeviceLike) -> torch.Tensor:
-    """A float32 tensor of ``value`` on its own device, or on ``device``
-    (None: the card) for a Python number."""
+    """A float32 tensor of ``value`` (a float64 tensor stays float64) on its
+    own device, or on ``device`` (None: the card) for a Python number."""
     if isinstance(value, torch.Tensor):
-        return value.to(torch.float32)
+        return value.to(torch.promote_types(value.dtype, torch.float32))
     return torch.tensor(float(value), dtype=torch.float32, device=resolve_device(device))
 
 

@@ -142,20 +142,33 @@ class CheckpointManager:
         keep |= {s for s in steps if self._metrics[s] is None}
         return [s for s in steps if s not in keep]
 
-    def restore(self, state: Any, step: Optional[int] = None) -> Any:
-        """Load checkpoint ``step`` (the latest by default) into ``state``
-        in place: model parameters, optimizer state and step count, on the
-        devices the model already lives on. Returns ``state``."""
+    def _read(self, step: Optional[int]) -> dict:
+        """The payload of checkpoint ``step`` (the latest by default), on
+        the host: ``load_state_dict`` copies it onto the parameters'
+        devices, and torch.optim keeps Adam's step counts on the host."""
         step = self.latest_step if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoint to restore in {self.directory}")
         path = self._path(step, "pt")
         if step not in self._metrics or not os.path.exists(path):
             raise FileNotFoundError(f"no checkpoint for step {step} in {self.directory}")
-        # loaded to the host, then copied onto the parameters' devices by
-        # load_state_dict; torch.optim keeps Adam's step counts on the host
-        _load(state, torch.load(path, map_location="cpu", weights_only=True))
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def restore(self, state: Any, step: Optional[int] = None) -> Any:
+        """Load checkpoint ``step`` (the latest by default) into ``state``
+        in place: model parameters, optimizer state and step count, on the
+        devices the model already lives on. Returns ``state``."""
+        _load(state, self._read(step))
         return state
+
+    def restore_model(self, model: torch.nn.Module, step: Optional[int] = None
+                      ) -> torch.nn.Module:
+        """Load only the model parameters of checkpoint ``step`` (the latest
+        by default) of a single train state into ``model``, whatever
+        optimizer the run trained with (what an evaluation needs). Returns
+        ``model``."""
+        model.load_state_dict(self._read(step)["model"])
+        return model
 
     def all_steps(self) -> List[int]:
         return sorted(self._metrics)

@@ -12,8 +12,10 @@ host-dispatch item.
 The GAN chunk functions (:func:`make_dcgan_chunk_fn`,
 :func:`make_recon_gan_chunk_fn`) run K steps of
 :mod:`~mvtb_tpu_torch.train.gan` the same way and stack the per-step curves
-on the device, so a chunk costs one host read too. The learnable-stylization
-chunk function comes with its model (ROADMAP.md section 1, item 6).
+on the device, so a chunk costs one host read too, and
+:func:`make_learnable_chunk_fn` runs K learnable-stylization steps of
+:mod:`~mvtb_tpu_torch.train.learnable` with the per-step trajectory of the
+stylization parameter stacked on the device.
 """
 
 from __future__ import annotations
@@ -64,6 +66,48 @@ def make_chunk_fn(stylize: Optional[StylizeConfig],
                                   generator=generator, device=dev)
             total += loss.float()
         return state, generator, total / n
+
+    return chunk_fn
+
+
+def make_learnable_chunk_fn(fd_mode: bool, train_alpha: bool = True,
+                            fd_h: float = 0.01, fd_lr: float = 0.02,
+                            device: DeviceLike = None) -> Callable:
+    """K learnable-stylization steps per call over a pool on the device:
+    :func:`~mvtb_tpu_torch.train.learnable.fd_train_step` (``fd_h``,
+    ``fd_lr``) with ``fd_mode``, else
+    :func:`~mvtb_tpu_torch.train.learnable.learnable_train_step`
+    (``train_alpha``).
+
+    Returns ``chunk_fn(state, generator, pool_i, pool_l, idxs) -> (state,
+    generator, mean_loss, trajectory)``: step ``i`` trains on the pool rows
+    ``idxs[i]`` (``index_select``), its spike locations drawn from
+    ``generator``; ``mean_loss`` is the
+    float32 mean of the K losses and ``trajectory`` the (K,) float32
+    stylization parameter after each step (the reference logs it every
+    step), both device tensors, so the caller reads once a chunk.
+    """
+    from mvtb_tpu_torch.train.learnable import fd_train_step, learnable_train_step
+
+    dev = resolve_device(device)
+
+    def chunk_fn(state: SegState, generator: Optional[torch.Generator],
+                 pool_i: torch.Tensor, pool_l: torch.Tensor, idxs: torch.Tensor):
+        n = idxs.shape[0]
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        trajectory = []
+        for i in range(n):
+            img = pool_i.index_select(0, idxs[i])
+            lbl = pool_l.index_select(0, idxs[i])
+            if fd_mode:
+                loss, alpha = fd_train_step(state, img, lbl, generator=generator,
+                                            h=fd_h, lr=fd_lr, device=dev)
+            else:
+                loss, alpha = learnable_train_step(state, img, lbl, generator=generator,
+                                                   train_alpha=train_alpha, device=dev)
+            total += loss.float()
+            trajectory.append(alpha.float())
+        return state, generator, total / n, torch.stack(trajectory)
 
     return chunk_fn
 

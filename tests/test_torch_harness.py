@@ -16,8 +16,8 @@ from mvtb_tpu.eval.harness import ModelEvaluation as JModelEvaluation
 from mvtb_tpu.eval.harness import TransformSweep as JTransformSweep
 from mvtb_tpu.models import UNet as JUNet
 from mvtb_tpu_torch.eval.harness import ModelEvaluation, TransformSweep
-from mvtb_tpu_torch.models import UNet, unet_params_from_flax
-from mvtb_tpu_torch.train import CheckpointManager, create_seg_state
+from mvtb_tpu_torch.models import GibbsUNet, SpikesUNet, UNet, unet_params_from_flax
+from mvtb_tpu_torch.train import CheckpointManager, create_learnable_state, create_seg_state
 from mvtb_tpu_torch.transforms import RandFourierDiskMaskd
 
 SPATIAL = (16, 16, 16)
@@ -148,5 +148,35 @@ def test_from_checkpoint_round_trips_a_port_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", ["gibbs_unet", "spikes_unet"])
 def test_stylization_unets_name_their_roadmap_item(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 6"):
-        ModelEvaluation.from_checkpoint(str(tmp_path), device="cpu", **{flag: True})
+    """``from_checkpoint`` restores a learnable run's full-width
+    ``GibbsUNet`` / ``SpikesUNet`` (1 -> 1), whatever its optimizer (the
+    spike run's here froze its UNet, so its optimizer holds one parameter),
+    and its forward runs the stylization layer, the spike draws from a
+    generator seeded 0 at every call."""
+    torch.manual_seed(1)
+    if flag == "gibbs_unet":
+        model = GibbsUNet(0.63, device="cpu")
+        state = create_learnable_state(model, device="cpu")
+    else:
+        model = SpikesUNet(12.5, device="cpu")
+        state = create_learnable_state(model, freeze_unet=True, unet_optimizer="sgd",
+                                       device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(3, state)
+    ev = ModelEvaluation.from_checkpoint(str(tmp_path / "ck"), instance_name="s",
+                                         in_channels=1, out_channels=1, device="cpu",
+                                         **{flag: True})
+    assert ev.in_channels == 1 and ev.out_channels == 1
+    restored = ev.model if flag == "gibbs_unet" else ev.model.model
+    assert type(restored) is type(model) and not restored.training
+    want, got = model.state_dict(), restored.state_dict()
+    assert want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want)
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 1, *SPATIAL).astype(np.float32))
+    with torch.no_grad():
+        out = ev.model(x)
+        if flag == "gibbs_unet":
+            assert torch.equal(out, model(x))
+        else:
+            assert torch.equal(out, model(x, generator=torch.Generator().manual_seed(0)))
+            assert torch.equal(out, ev.model(x))  # the same draws at every call
+            assert not torch.equal(out, restored.unet(x))  # the spike layer ran

@@ -68,16 +68,22 @@ def test_segmentation_stylizations_run_on_the_ported_paths():
     assert "NotImplementedError" not in inspect.getsource(fused)
 
 
-def test_other_kinds_are_named_in_the_runner():
-    """Every registry kind is run (segmentation, the GAN kinds) or queued
-    under its ROADMAP item (the learnable kinds)."""
+def test_other_kinds_are_named_in_the_runner(monkeypatch):
+    """Every registry kind is run: besides segmentation, the learnable and
+    the GAN kinds, each named in the runner, and without a card an entry
+    of each reaches the device check."""
     from mvtb_tpu_torch.experiments import runner
 
     kinds = {treg.get(n).kind for n in NAMES} - {"segmentation"}
-    assert kinds == set(runner._TODO_KINDS) | set(runner.GAN_KINDS)
-    assert not set(runner._TODO_KINDS) & set(runner.GAN_KINDS)
-    for kind in runner._TODO_KINDS:
-        assert "ROADMAP.md section 1, item" in runner._TODO_KINDS[kind]
+    assert kinds == set(runner.LEARNABLE_KINDS) | set(runner.GAN_KINDS)
+    assert not set(runner.LEARNABLE_KINDS) & set(runner.GAN_KINDS)
+    assert not hasattr(runner, "_TODO_KINDS")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kind in kinds:
+        name = next(n for n in NAMES if treg.get(n).kind == kind)
+        for chunked in (False, True):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                runner.run(name, chunked=chunked)
 
 
 def test_cli_list_matches_jax(capsys):

@@ -43,7 +43,8 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.train.chunked, mvtb_tpu_torch.experiments.runner, "
             "mvtb_tpu_torch.experiments.manifest, mvtb_tpu_torch.eval.harness, "
             "mvtb_tpu_torch.eval.sliding_window, mvtb_tpu_torch.eval.plots, "
-            "mvtb_tpu_torch.data, mvtb_tpu_torch.native, chip_smoke\n"
+            "mvtb_tpu_torch.data, mvtb_tpu_torch.native, mvtb_tpu_torch.models.layers, "
+            "mvtb_tpu_torch.train.learnable, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -120,6 +121,20 @@ def test_entry_points_default_to_the_card(no_card):
                  lambda: StylizedLoader(loader, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # learnable stylization
+    from mvtb_tpu_torch.models import GibbsNoiseLayer, GibbsUNet, SpikeLayer, SpikesUNet
+    from mvtb_tpu_torch.train import (create_learnable_state, fd_train_step,
+                                      learnable_train_step, make_learnable_chunk_fn)
+    tiny = dict(channels=(2, 4), strides=(2,), num_res_units=1)
+    lstate = create_learnable_state(GibbsUNet(**tiny, device="cpu"), device="cpu")
+    for make in (lambda: GibbsUNet(**tiny), lambda: SpikesUNet(**tiny),
+                 lambda: GibbsNoiseLayer(0.5), lambda: SpikeLayer(),
+                 lambda: create_learnable_state(GibbsUNet(**tiny, device="cpu")),
+                 lambda: make_learnable_chunk_fn(True), lambda: make_learnable_chunk_fn(False),
+                 lambda: learnable_train_step(lstate, x, x), lambda: fd_train_step(lstate, x, x)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert lstate.step == 0
 
 
 @pytest.mark.parametrize("make", [

@@ -188,14 +188,14 @@ def test_epoch_generators_depend_on_base_and_epoch_only():
 
 
 def test_other_kinds_and_domain_runs_name_their_roadmap_item(monkeypatch):
-    """The learnable kinds name their ROADMAP item (the GAN kinds run:
-    tests/test_torch_gan_runner.py); the domain protocol is ported
-    (tests/test_torch_domain.py) and, without a card, reaches the device
-    check instead of raising NotImplementedError."""
-    for name, item in (("gibbs0p7_layer_GD", "item 6"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1, {item}"):
-            trunner.run(name, device="cpu")
+    """The learnable kinds (tests/test_torch_learnable_runner.py), the GAN
+    kinds (tests/test_torch_gan_runner.py) and the domain protocol
+    (tests/test_torch_domain.py) are ported: without a card a learnable
+    entry and the domain protocol reach the device check instead of raising
+    NotImplementedError."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trunner.run("gibbs0p7_layer_GD")
     with pytest.raises(RuntimeError, match="CUDA"):
         trunner.run_domain_experiment("baseline_domain")
     with pytest.raises(ValueError, match="unknown experiment kind"):
