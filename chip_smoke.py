@@ -156,7 +156,28 @@ order, each fatal on failure:
    with TF32 on (cuDNN's float32 default) and with the autotuner;
    ``ModelEvaluation.from_checkpoint`` with ``gibbs_unet`` and
    ``spikes_unet`` on the runs' checkpoints (a finite Dice);
-13. timing with CUDA events: the plane kernel, its plain version and
+13. parallel phase (the ``(data, model)`` mesh and the sharded paths;
+   the card machine holds one GPU, and NCCL takes one rank a device): the
+   data-parallel ``seg_train_step`` on an NCCL world of one at the train
+   phase's batch (the full-width UNet in float32, the bench stack on
+   ``dft_pallas``, SGD(1.0), deterministic cuDNN) bit-equal to the plain
+   step over 2 steps, launching r2c, c2c and c2r 1, 4 and 1 times a step at
+   ``high``; ms a step of both, in turns, and the gradient all-reduce's ms.
+   Then two gloo ranks sharing the card, in subprocesses (``chip_smoke.py
+   --parallel-rank ...``) whose exit codes are fatal: gloo's point-to-point
+   send on a CUDA tensor tried in a pair of its own (recorded, not held:
+   it fails, so the port's exchanges use collectives), all_reduce (sum,
+   min, max), all_gather, all_to_all_single and broadcast on CUDA tensors
+   checked, the H-split stylize of a 4x240x240x155 volume under the bench
+   stack against ``stylize_kspace`` on the backend the split path resolves
+   to (within 1e-4 of the max, no hand-written launch), the JAX package's
+   full-volume case (the H-split disk r = 12.5 stylize feeding the H-split
+   train step of the full-width UNet at 240x240x160, SGD(1.0)) against the
+   one-rank step (loss within 1e-4 relative, gradients within 1e-3 of
+   their norm), and a (data 1 x model 2) tensor-parallel step at the train
+   phase's batch against the one-rank step (the same bounds); the 2-rank
+   times are correctness runs on one shared card, not scaling numbers;
+14. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -2512,11 +2533,424 @@ def learnable_phase(dev) -> dict:
     return res
 
 
-def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm) -> list:
+# ---------------------------------------------------------------------------
+# parallel phase
+# ---------------------------------------------------------------------------
+
+# the data-parallel step at world 1 (NCCL): the train phase's batch and
+# stack, the full-width UNet in float32, SGD(1.0); equality steps, launch
+# steps and timed steps (in turns, plain then data-parallel)
+DP_EQUAL_STEPS, DP_LAUNCH_STEPS, DP_TIMED_ROUNDS, DP_TIMED_STEPS = 2, 3, 2, 3
+# the 2-rank checks (gloo, both ranks on the one card): the bench volume
+# for the H-split stylize, the JAX package's full-volume spatial step
+# (``__graft_entry__.py:170-235``: 240x240x160, UNet 16..256, the disk
+# r = 12.5 stylize, SGD(1.0)) and a tensor-parallel step at the train
+# phase's batch
+PAR_WORLD = 2
+PAR_STYLIZE_SHAPE = BENCH_SHAPE[1:]
+PAR_STYLIZE_TOL = 1e-4  # of the max, tests/test_sharded_fft.py's bound
+PAR_FULL_VOLUME = (240, 240, 160)
+PAR_LOSS_TOL, PAR_GRAD_TOL = 1e-4, 1e-3  # __graft_entry__.py:222, :234
+PAR_TIMEOUT = 900
+# the collectives gloo is asked to carry on CUDA tensors; send / recv is
+# probed in a pair of its own (gloo fails it on CUDA tensors, so the halo
+# exchange and the trades use all_gather, all_reduce and all_to_all)
+PAR_COLLECTIVES = ("all_reduce_sum", "all_reduce_min", "all_reduce_max", "all_gather",
+                   "all_to_all_single", "broadcast")
+
+
+def _dp_world1(dev) -> dict:
+    """The data-parallel ``seg_train_step`` on an NCCL world of one against
+    the plain step: bit-equal (an all-reduce over one rank is the
+    identity), the axis kernels launched 1, 4, 1 times a step at ``high``."""
+    import torch.distributed as dist
+
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.ops import fused, pallas_dft
+    from mvtb_tpu_torch.parallel import dp, make_mesh, replicate
+    from mvtb_tpu_torch.train import create_seg_state, seg_train_step
+
+    check(not dist.is_initialized(), "a process group is already running")
+    mesh = make_mesh(device=dev)
+    try:
+        check(dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1},
+              f"world-1 mesh {dist.get_backend()} {mesh.shape}")
+        torch.manual_seed(11)
+        model = UNet(4, 3, device=dev)
+        cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
+        g = torch.Generator(device=dev).manual_seed(12)
+        B = TRAIN_SHAPE[0]
+        batches = [(torch.randn(TRAIN_SHAPE, generator=g, device=dev),
+                    (torch.rand((B, 3) + TRAIN_SHAPE[2:], generator=g, device=dev) < 0.3).float(),
+                    fused.sample_draws(cfg, TRAIN_SHAPE[2:], B, TRAIN_SHAPE[1], generator=g,
+                                       device=dev))
+                   for _ in range(DP_EQUAL_STEPS)]
+
+        def state_of(lr):
+            m = replicate(mesh, model)
+            return create_seg_state(m, torch.optim.SGD(m.parameters(), lr=lr), device=dev)
+
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            plain, par = state_of(1.0), state_of(1.0)
+            losses = []
+            for image, label, draws in batches:
+                a = seg_train_step(plain, image, label, cfg, draws=draws, device=dev)
+                b = seg_train_step(par, image, label, cfg, draws=draws, device=dev, mesh=mesh)
+                losses.append((float(a), float(b)))
+                check(torch.equal(a, b), f"world-1 data-parallel loss {float(b)} != {float(a)}")
+            for (k, p), q in zip(plain.model.named_parameters(), par.model.parameters()):
+                check(torch.equal(p, q), f"world-1 data-parallel step differs at {k}")
+            # launches of the data-parallel path alone
+            _zero_launch_counts()
+            pallas_dft.tier_launches.clear()
+            for _ in range(DP_LAUNCH_STEPS):
+                seg_train_step(par, *batches[0][:2], cfg, generator=g, device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            tiers = dict(pallas_dft.tier_launches)
+            for body, per_step in LAUNCHES_PER_STEP.items():
+                n = launches[f"axis_dft_{body}"]
+                check(n == per_step * DP_LAUNCH_STEPS,
+                      f"data-parallel path: {body} launched {n} times in {DP_LAUNCH_STEPS} steps")
+                key = (body, pallas_dft.route(body, PATH_TIER), PATH_TIER)
+                check(tiers.get(key, 0) == n, f"data-parallel path: {body} {tiers}")
+            check(not any(v for k, v in launches.items() if not k.startswith("axis_dft")),
+                  f"data-parallel path launched another kernel: {launches}")
+            # ms a step, in turns; the gradient all-reduce alone
+            timed = {"plain": state_of(1e-3), "data_parallel": state_of(1e-3)}
+            ms = {k: [] for k in timed}
+            for _ in range(DP_TIMED_ROUNDS):
+                for tag, st in timed.items():
+                    for _ in range(DP_TIMED_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        seg_train_step(st, *batches[0][:2], cfg, generator=g, device=dev,
+                                       mesh=mesh if tag == "data_parallel" else None)
+                        torch.cuda.synchronize()
+                        ms[tag].append((time.perf_counter() - t0) * 1e3)
+            params = list(timed["data_parallel"].model.parameters())
+            allreduce_ms = cuda_ms(lambda: dp.mean_gradients(params, mesh), 10)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    finally:
+        dist.destroy_process_group()
+    return {"backend": "nccl", "world": 1, "losses_plain_vs_dp": losses,
+            "bit_equal_steps": DP_EQUAL_STEPS, "launches": launches,
+            "launches_by_route_and_tier": {" ".join(k): v for k, v in tiers.items()},
+            "launch_steps": DP_LAUNCH_STEPS,
+            "ms_per_step": {k: v for k, v in ms.items()},
+            "ms_per_step_median": {k: statistics.median(v[1:]) for k, v in ms.items()},
+            "grad_allreduce_ms": allreduce_ms,
+            "grad_allreduce_mb": sum(p.numel() for p in params) * 4 / 1e6}
+
+
+def _par_rank_setup(rank: int, world: int, store: str):
+    """A 2-rank worker: gloo on the one card, TF32 off, deterministic cuDNN."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", init_method=store, world_size=world, rank=rank)
+    return torch.device("cuda", 0)
+
+
+def _probe(dev, rank: int, world: int) -> dict:
+    """Each collective of PAR_COLLECTIVES on a CUDA tensor, checked."""
+    import torch.distributed as dist
+
+    base = torch.arange(2 * world, dtype=torch.float32, device=dev)
+    x = base + 100 * rank
+    ranks = torch.arange(world, dtype=torch.float32, device=dev)
+    got = {}
+    t = x.clone()
+    dist.all_reduce(t)
+    got["all_reduce_sum"] = torch.equal(t, base * world + 100 * ranks.sum())
+    for name, op, want in (("all_reduce_min", dist.ReduceOp.MIN, base),
+                           ("all_reduce_max", dist.ReduceOp.MAX, base + 100 * (world - 1))):
+        t = x.clone()
+        dist.all_reduce(t, op=op)
+        got[name] = torch.equal(t, want)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    got["all_gather"] = all(torch.equal(p, base + 100 * j) for j, p in enumerate(parts))
+    t = torch.empty_like(x)
+    dist.all_to_all_single(t, x)
+    got["all_to_all_single"] = torch.equal(
+        t, torch.cat([base[2 * rank:2 * rank + 2] + 100 * j for j in range(world)]))
+    t = x.clone()
+    dist.broadcast(t, src=0)
+    got["broadcast"] = torch.equal(t, base)
+    return got
+
+
+def _par_stylize(dev, rank: int, world: int, mesh) -> dict:
+    """The H-split stylize of a BraTS-size volume under the bench stack
+    against ``stylize_kspace`` on the backend the split path resolves to."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from mvtb_tpu_torch.ops import fused
+    from mvtb_tpu_torch.parallel.sharded_fft import shard_backend, stylize_kspace_sharded
+
+    C, H, W, D = PAR_STYLIZE_SHAPE
+    h = H // world
+    g = torch.Generator().manual_seed(21)  # the same volume and draws on every rank
+    x = torch.randn(PAR_STYLIZE_SHAPE, generator=g).to(dev)
+    cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
+    draws = fused.sample_draws(cfg, (H, W, D), 1, C, generator=g, device="cpu").to(dev)
+    block = x[:, rank * h:(rank + 1) * h].contiguous()
+    _zero_launch_counts()
+    ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stylize_kspace_sharded(block, cfg, mesh, draws=draws)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launch_counts()
+    check(not any(launches.values()), f"the H-split stylize launched a kernel: {launches}")
+    parts = [torch.empty_like(got) for _ in range(world)]
+    dist.all_gather(parts, got.contiguous())
+    res = {"shape": PAR_STYLIZE_SHAPE, "launches": launches, "ms": ms,
+           "ms_median": statistics.median(ms)}
+    if rank == 0:
+        backend = shard_backend(cfg, (H, W, D), dev)
+        one = dataclasses.replace(cfg, fft_backend=backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fused.stylize_kspace(x, one, draws=draws, device=dev)
+        torch.cuda.synchronize()
+        res["one_device_ms"] = (time.perf_counter() - t0) * 1e3
+        err = rel_err(torch.cat(parts, dim=1), want)
+        check(err <= PAR_STYLIZE_TOL,
+              f"H-split stylize vs stylize_kspace ({backend}): {err:.3e} > {PAR_STYLIZE_TOL}")
+        res.update(backend=backend, rel_err=err)
+    return res
+
+
+def _grad_rel(after: dict, ref_after: dict, start: dict) -> float:
+    """|g - g_ref| / |g_ref| over the whole tree, the gradients read as the
+    SGD(1.0) steps' parameter changes (``__graft_entry__.py:222-234``)."""
+    sq_diff = sq_ref = 0.0
+    for k, p0 in start.items():
+        ga, gb = after[k].double() - p0.double(), ref_after[k].double() - p0.double()
+        sq_diff += float(((ga - gb) ** 2).sum())
+        sq_ref += float((gb ** 2).sum())
+    return (sq_diff / max(sq_ref, 1e-30)) ** 0.5
+
+
+def _par_spatial(dev, rank: int, world: int, mesh) -> dict:
+    """The JAX package's full-volume case: the H-split stylize (disk r =
+    12.5) feeding the H-split train step of the full-width UNet, against
+    the one-rank step on the same stylized volume."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from mvtb_tpu_torch.data.synthetic import make_volume
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.ops import fused
+    from mvtb_tpu_torch.parallel import replicate
+    from mvtb_tpu_torch.parallel.sharded_fft import stylize_kspace_sharded
+    from mvtb_tpu_torch.parallel.spatial import spatial_train_step
+    from mvtb_tpu_torch.train import create_seg_state, seg_train_step
+
+    H = PAR_FULL_VOLUME[0]
+    h = H // world
+    image, label = make_volume(np.random.RandomState(5), 4, PAR_FULL_VOLUME)
+    rows = slice(rank * h, (rank + 1) * h)
+    cfg = fused.StylizeConfig(disk_r=12.5, disk_prob=1.0)
+    draws = fused.sample_draws(cfg, PAR_FULL_VOLUME, 1, 4,
+                               generator=torch.Generator().manual_seed(8), device="cpu")
+    styled = stylize_kspace_sharded(torch.from_numpy(image[:, rows]).to(dev), cfg, mesh,
+                                    draws=draws)
+    lbl = torch.from_numpy(label[:, rows]).to(dev)
+    torch.manual_seed(9)
+    model = UNet(4, 3, device=dev)
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state = replicate(mesh, create_seg_state(model, torch.optim.SGD(model.parameters(), lr=1.0),
+                                             device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(spatial_train_step(state, styled[None], lbl[None], mesh, device=dev))
+    torch.cuda.synchronize()
+    res = {"volume": PAR_FULL_VOLUME, "loss": loss,
+           "step_ms": (time.perf_counter() - t0) * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    parts = [torch.empty_like(styled) for _ in range(world)]
+    dist.all_gather(parts, styled.contiguous())
+    after = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    del state
+    if rank == 0:
+        ref = UNet(4, 3, device=dev)
+        ref.load_state_dict(start)
+        rstate = create_seg_state(ref, torch.optim.SGD(ref.parameters(), lr=1.0), device=dev)
+        full = torch.cat(parts, dim=1)[None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_loss = float(seg_train_step(rstate, full, torch.from_numpy(label)[None].to(dev),
+                                        device=dev))
+        torch.cuda.synchronize()
+        res["one_rank_step_ms"] = (time.perf_counter() - t0) * 1e3
+        loss_rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-9)
+        grad_rel = _grad_rel(after, dict(ref.named_parameters()), start)
+        check(loss_rel <= PAR_LOSS_TOL, f"H-split step loss {loss} vs {ref_loss}")
+        check(grad_rel <= PAR_GRAD_TOL, f"H-split step gradients: {grad_rel:.3e}")
+        res.update(one_rank_loss=ref_loss, loss_rel_err=loss_rel, grad_rel_err=grad_rel)
+    dist.barrier()
+    return res
+
+
+def _par_tp(dev, rank: int, world: int) -> dict:
+    """A (data 1 x model 2) tensor-parallel step of the full-width UNet at
+    the train phase's batch against the one-rank step."""
+    import torch.distributed as dist
+
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.parallel import gather_params_tp, make_mesh, replicate, shard_state_tp
+    from mvtb_tpu_torch.train import create_seg_state, seg_train_step
+
+    mesh = make_mesh(n_data=1, n_model=world, device=dev)
+    g = torch.Generator().manual_seed(31)
+    B = TRAIN_SHAPE[0]
+    image = torch.randn(TRAIN_SHAPE, generator=g).to(dev)
+    label = (torch.rand((B, 3) + TRAIN_SHAPE[2:], generator=g) < 0.3).float().to(dev)
+    torch.manual_seed(32)
+    model = UNet(4, 3, device=dev)
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    def sgd_state():
+        m = replicate(mesh, model)
+        return create_seg_state(m, torch.optim.SGD(m.parameters(), lr=1.0), device=dev)
+
+    one = sgd_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_loss = float(seg_train_step(one, image, label, device=dev))
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    ref_after = {k: p.detach().clone() for k, p in one.model.named_parameters()}
+    del one
+    tp = shard_state_tp(mesh, sgd_state())
+    split = sum(len(getattr(m, "tp_split", {})) for m in tp.model.modules())
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(seg_train_step(tp, image, label, device=dev, mesh=mesh))
+    torch.cuda.synchronize()
+    tp_ms = (time.perf_counter() - t0) * 1e3
+    after = gather_params_tp(mesh, tp.model)
+    loss_rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-9)
+    grad_rel = _grad_rel(after, ref_after, start)
+    check(split > 0, "no parameter was split over the model axis")
+    check(loss_rel <= PAR_LOSS_TOL, f"tensor-parallel loss {loss} vs {ref_loss}")
+    check(grad_rel <= PAR_GRAD_TOL, f"tensor-parallel gradients: {grad_rel:.3e}")
+    return {"mesh": mesh.shape, "split_params": split, "loss": loss, "one_rank_loss": ref_loss,
+            "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "step_ms": tp_ms,
+            "one_rank_step_ms": one_ms}
+
+
+def parallel_rank(job: str, rank: int, world: int, store: str, out_path: str) -> int:
+    """One rank of the parallel phase's 2-rank runs (``chip_smoke.py
+    --parallel-rank job rank world store out``): ``checks`` probes the
+    collectives and runs the 2-rank checks, each fatal; ``send_recv`` tries
+    gloo's point-to-point send on a CUDA tensor."""
+    import torch.distributed as dist
+
+    dev = _par_rank_setup(rank, world, store)
+    try:
+        if job == "send_recv":
+            x = torch.full((4,), float(rank), device=dev)
+            if rank == 0:
+                dist.send(x, 1)
+            else:
+                dist.recv(x, 0)
+            res = {"send_recv": float(x[0]) == 0.0}
+        else:
+            from mvtb_tpu_torch.parallel import make_mesh
+
+            res = {"collectives": _probe(dev, rank, world)}
+            check(all(res["collectives"].values()), f"gloo on CUDA: {res['collectives']}")
+            mesh = make_mesh(device=dev)
+            res["stylize"] = _par_stylize(dev, rank, world, mesh)
+            res["spatial"] = _par_spatial(dev, rank, world, mesh)
+            res["tensor_parallel"] = _par_tp(dev, rank, world)
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(job: str, tmp: str, fatal: bool, timeout: float = PAR_TIMEOUT) -> tuple:
+    """Start ``PAR_WORLD`` ranks of ``job`` (this script, ``--parallel-rank``)
+    on a file store; returns (exit codes, outputs, results)."""
+    store = f"file://{tmp}/{job}.store"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", job, str(r),
+         str(PAR_WORLD), store, f"{tmp}/{job}.{r}.pt"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
+        for r in range(PAR_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if fatal:
+        for r, (c, log) in enumerate(zip(codes, logs)):
+            check(c == 0, f"parallel {job} rank {r} exited {c}:\n{log[-4000:]}")
+    results = [torch.load(f"{tmp}/{job}.{r}.pt", weights_only=False) if c == 0 else None
+               for r, c in enumerate(codes)]
+    return codes, logs, results
+
+
+def parallel_phase(dev) -> dict:
+    """(a) the data-parallel ``seg_train_step`` on an NCCL world of one (the
+    card holds one GPU, and NCCL takes one rank a device); (b) two gloo
+    ranks sharing the card, in subprocesses whose exit codes are fatal: the
+    collectives probed on CUDA tensors, then the H-split stylize, the
+    full-volume H-split train step and a tensor-parallel step, each against
+    its one-rank counterpart. The 2-rank times are correctness runs on one
+    shared card, not scaling numbers."""
+    import tempfile
+
+    res = {"dp_world1": _dp_world1(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        codes, logs, _ = _run_ranks("send_recv", tmp, fatal=False, timeout=120)
+        res["gloo_cuda_send_recv"] = {"exit_codes": codes, "ok": codes == [0] * PAR_WORLD,
+                                      "error": next((l.strip().splitlines()[-1] for l in logs
+                                                     if "Error" in l), None)}
+        _, _, ranks = _run_ranks("checks", tmp, fatal=True)
+        res["two_rank_seconds"] = time.perf_counter() - t0
+    res["gloo_cuda_collectives"] = ranks[0]["collectives"]
+    res["two_rank"] = {k: ranks[0][k] for k in ("stylize", "spatial", "tensor_parallel")}
+    res["two_rank"]["rank1_ms"] = {"stylize": ranks[1]["stylize"]["ms_median"],
+                                   "spatial_step": ranks[1]["spatial"]["step_ms"],
+                                   "tensor_parallel_step": ranks[1]["tensor_parallel"]["step_ms"]}
+    check(ranks[0]["spatial"]["loss"] == ranks[1]["spatial"]["loss"],
+          "the H-split step's ranks report different losses")
+    return res
+
+
+def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
     path, the runner's fast profile and the domain runs' (timed at the eval
-    slice), each axis kernel from the train path, the fused-rest paths and
-    the domain run on ``dft_pallas`` (timed at the train shape)."""
+    slice), each axis kernel from the train path, the fused-rest paths, the
+    domain run on ``dft_pallas`` and the data-parallel step (timed at the
+    train shape)."""
     main_t = tm["plane slice"]
     domain = dm["runs"]
     by_path = {"eval_slice": sl["launches"],
@@ -2541,13 +2975,14 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm) -> list:
         check(len(rows) == LAUNCHES_PER_STEP[body], f"{body}: {len(rows)} timed views")
         worst_row = max(rows, key=lambda r: r["bound_ms"])
         on_domain = domain["dft_pallas"]["launches"][f"axis_dft_{body}"]
+        on_dp = pl["dp_world1"]["launches"][f"axis_dft_{body}"]
         kernels.append({
             "name": f"axis_dft_{body}", "route": "cuda",
             "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
             "replaces": AXIS_REPLACES[body],
-            "launches": tr["launches"][body] + rest[body] + on_domain,
+            "launches": tr["launches"][body] + rest[body] + on_domain + on_dp,
             "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body],
-                                 "domain_dft_pallas": on_domain},
+                                 "domain_dft_pallas": on_domain, "parallel_dp": on_dp},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
@@ -2642,6 +3077,11 @@ def main() -> int:
     out({"learnable_phase": lp, "card": smi})
 
     t0 = time.perf_counter()
+    pl = parallel_phase(dev)
+    pl["seconds"] = time.perf_counter() - t0
+    out({"parallel_phase": pl, "card": smi})
+
+    t0 = time.perf_counter()
     tm = timing_phase(dev)
     out({"timing": tm, "card": smi, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -2651,7 +3091,7 @@ def main() -> int:
     pt = pointwise_timing(dev)
     out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm)
+    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",
@@ -2661,4 +3101,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        job, rank, world, store, out_path = sys.argv[2:7]
+        sys.exit(parallel_rank(job, int(rank), int(world), store, out_path))
     sys.exit(main())

@@ -21,7 +21,13 @@ mvtb_tpu_torch.experiments``, over ``train.chunked``, ``train.checkpoint``,
 ``train.gan`` and ``eval.fid``) and the hospital-domain protocol
 (``experiments.run_domain_experiment``, with ``eval``'s harness, sliding
 window and plots, and ``data``'s NIfTI, preprocessing, loaders and
-hospitals over the host's C++ reader and resampler in ``native``).
+hospitals over the host's C++ reader and resampler in ``native``),
+learnable stylization (``models.layers``' Gibbs and spike layers,
+``train.learnable``'s joint and finite-difference steps, and the runner's
+learnable kinds) and parallelism (``parallel``: the ``(data, model)``
+process mesh, multi-process start-up, data- and tensor-parallel train
+steps, the H-split k-space stylization and the H-split UNet step with
+halo exchanges).
 """
 
 from mvtb_tpu_torch._device import resolve_device

@@ -7,9 +7,9 @@ these as copy-pasted files differing in 1-10 constant lines; here one
 each clone. Corruption specs map onto the fused on-device
 :class:`~mvtb_tpu_torch.ops.fused.StylizeConfig`. The entries are data,
 equal field by field to the JAX package's (``tests/test_torch_registry.py``);
-the runner runs the ``segmentation`` and GAN kinds, and the learnable
-kinds raise ``NotImplementedError`` naming their ROADMAP item. The name-for-name
-manifest of the reference scripts stays with the JAX package.
+the runner runs every kind (``segmentation``, the GAN kinds and the
+learnable ones), and :mod:`mvtb_tpu_torch.experiments.manifest` maps each
+reference script to its entry, name for name.
 
 Semantics note (verified against the scripts): every reference
 experiment whose *name* says "spikes" — the stacked one-channel families

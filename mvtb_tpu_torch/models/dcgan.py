@@ -24,7 +24,7 @@ stride 2 is padding 1. D's 4x4 stride-2 ``SAME`` convs pad (1, 1).
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,9 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.momentum, self.eps = momentum, eps
         self.update_stats = True
+        # a data-parallel step sets this to the sum over the ranks that
+        # share the batch, so the statistics are the global batch's
+        self.batch_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         w = torch.empty(features, device=device).normal_(0.0, 0.02, generator=generator)
         self.weight = nn.Parameter(1.0 + w)
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -52,8 +55,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = (0, 2, 3)
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            if self.batch_sum is None:
+                mean = x.mean(dim=axes)
+                msq = (x * x).mean(dim=axes)
+            else:
+                count = x.new_full((x.shape[1],), float(x.numel() // x.shape[1]))
+                s = self.batch_sum(torch.stack([x.sum(dim=axes), (x * x).sum(dim=axes),
+                                                count]))
+                mean, msq = s[0] / s[2], s[1] / s[2]
+            var = torch.clamp(msq - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum

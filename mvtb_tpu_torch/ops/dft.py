@@ -411,6 +411,20 @@ def hybrid_dft_nd(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     return torch.complex(re, torch.zeros_like(re) if im is None else im)
 
 
+def hybrid_idft_nd(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """The ``ifftn(x, axes=axes)`` contract (complex output) with the per-axis
+    hybrid backend: one ``ifftn`` over the smooth axes, then the matmul
+    axes."""
+    axes = _axes(axes, x.ndim)
+    smooth, mat = _split_smooth(x.shape, axes)
+    re, im = _parts(x)
+    if smooth:
+        re, im = _fft_axes(re, im, smooth, True)
+    for a in mat:
+        re, im = _axis_dft(re, im, a, True)
+    return torch.complex(re, torch.zeros_like(re) if im is None else im)
+
+
 def hybrid_idft_nd_real(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     """Real part of the inverse n-D DFT with the per-axis hybrid backend: one
     ``ifftn`` over the smooth axes, then the matmul axes, the last of them

@@ -171,6 +171,13 @@ class StageDraws:
                      else getattr(self, f.name).to(device))
             for f in dataclasses.fields(self)})
 
+    def rows(self, rows: slice) -> "StageDraws":
+        """The draws of the samples ``rows`` (every field leads with B)."""
+        return StageDraws(**{
+            f.name: (None if getattr(self, f.name) is None
+                     else getattr(self, f.name)[rows])
+            for f in dataclasses.fields(self)})
+
     def require(self, *names: str) -> None:
         missing = [n for n in names if getattr(self, n) is None]
         if missing:

@@ -25,15 +25,18 @@ takes its ``z``, ``recon_gan_step`` its three compress draws
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
-from mvtb_tpu_torch.models.dcgan import frozen_batch_stats
+from mvtb_tpu_torch.models.dcgan import BatchNorm, frozen_batch_stats
 from mvtb_tpu_torch.ops.corruptions import rand_zero_fill
 from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig, sample_draws, stylize_batch
+from mvtb_tpu_torch.parallel import dp
+from mvtb_tpu_torch.parallel.collectives import all_reduce_sum
 from mvtb_tpu_torch.train.losses import bce_with_logits, mse
 
 # one compress draw: the zero-fill's uniform field, or the Gibbs stylization's
@@ -64,18 +67,38 @@ def create_gan_state(model: torch.nn.Module, lr: float = 2e-4,
     return GANState(model=model, optimizer=gan_optimizer(model.parameters(), lr, beta1))
 
 
-def _apply_grads(state: GANState, loss: torch.Tensor) -> None:
+def _apply_grads(state: GANState, loss: torch.Tensor, mesh=None) -> None:
     params = [p for p in state.model.parameters() if p.requires_grad]
     grads = torch.autograd.grad(loss, params)
     for p, g in zip(params, grads):
         p.grad = g
+    if mesh is not None:
+        dp.mean_gradients(params, mesh)
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
 
 
+@contextlib.contextmanager
+def _global_batch_stats(mesh, *modules: torch.nn.Module):
+    """Under a mesh, every :class:`~mvtb_tpu_torch.models.dcgan.BatchNorm`
+    of ``modules`` takes its statistics over the global batch (sums
+    all-reduced over ``data``, with gradients), as GSPMD computes them for
+    the JAX step."""
+    norms = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    if mesh is not None:
+        group = mesh.group("data")
+        for m in norms:
+            m.batch_sum = lambda t: all_reduce_sum(t, group)
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.batch_sum = None
+
+
 def dcgan_step(g: GANState, d: GANState, real: torch.Tensor, z: torch.Tensor,
-               real_label: float = 1.0) -> Dict[str, torch.Tensor]:
+               real_label: float = 1.0, mesh=None) -> Dict[str, torch.Tensor]:
     """One DCGAN iteration, D then G, updating both states in place.
 
     ``real``: (B, nc, H, W) in [-1, 1]; ``z``: (B, nz, 1, 1) ~ N(0, 1).
@@ -90,24 +113,34 @@ def dcgan_step(g: GANState, d: GANState, real: torch.Tensor, z: torch.Tensor,
     from the graph, is D's fake, and its graph carries G's loss. D's running
     averages are updated by the real batch, then the fake one; D's forward
     inside G's loss, with D's updated parameters, updates none.
+
+    ``mesh`` makes the step data-parallel: ``real`` and ``z`` are this
+    rank's rows of the global batch, every BatchNorm takes the global
+    batch's statistics, the gradients are averaged over ``data`` and the
+    returned values are global means, so the step equals the one-process
+    step over the whole batch.
     """
-    fake = g.model(z)
+    with _global_batch_stats(mesh, g.model, d.model):
+        fake = g.model(z)
 
-    out_real = d.model(real)
-    out_fake1 = d.model(fake.detach())
-    d_loss = (bce_with_logits(out_real, torch.full_like(out_real, real_label))
-              + bce_with_logits(out_fake1, torch.zeros_like(out_fake1)))
-    _apply_grads(d, d_loss)
+        out_real = d.model(real)
+        out_fake1 = d.model(fake.detach())
+        d_loss = (bce_with_logits(out_real, torch.full_like(out_real, real_label))
+                  + bce_with_logits(out_fake1, torch.zeros_like(out_fake1)))
+        _apply_grads(d, d_loss, mesh)
 
-    with frozen_batch_stats(d.model):
-        out_fake2 = d.model(fake)
-    g_loss = bce_with_logits(out_fake2, torch.ones_like(out_fake2))
-    _apply_grads(g, g_loss)
+        with frozen_batch_stats(d.model):
+            out_fake2 = d.model(fake)
+        g_loss = bce_with_logits(out_fake2, torch.ones_like(out_fake2))
+        _apply_grads(g, g_loss, mesh)
 
-    return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-            "D_x": torch.sigmoid(out_real.detach()).mean(),
-            "D_G_z1": torch.sigmoid(out_fake1.detach()).mean(),
-            "D_G_z2": torch.sigmoid(out_fake2.detach()).mean()}
+    out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+           "D_x": torch.sigmoid(out_real.detach()).mean(),
+           "D_G_z1": torch.sigmoid(out_fake1.detach()).mean(),
+           "D_G_z2": torch.sigmoid(out_fake2.detach()).mean()}
+    if mesh is None:
+        return out
+    return {k: dp.global_mean(v, mesh) for k, v in out.items()}
 
 
 def gibbs_compress_config(n_dims: int = 2) -> StylizeConfig:

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
+from mvtb_tpu_torch.parallel import dp
 from mvtb_tpu_torch.train.losses import dice_loss
 from mvtb_tpu_torch.train.seg import SegState, reference_optimizer
 
@@ -48,16 +49,22 @@ def styl_param(model: torch.nn.Module) -> torch.nn.Parameter:
     return getattr(getattr(model, layer), name)
 
 
-def _draws(model: torch.nn.Module, image: torch.Tensor, locs, generator):
+def _draws(model: torch.nn.Module, image: torch.Tensor, locs, generator, mesh=None):
     """The step's spike locations: given, drawn once from ``generator``
-    (``SpikesUNet``), or None (``GibbsUNet`` draws nothing)."""
+    (``SpikesUNet``), or None (``GibbsUNet`` draws nothing). Under a mesh
+    they are the global batch's, cut to this rank's rows."""
     if locs is None and hasattr(model, "spike"):
-        locs = model.spike.sample_locations(image, generator)
+        B = image.shape[0]
+        like = image if mesh is None else image[:1].expand(
+            dp.global_batch_size(mesh, B), *image.shape[1:])
+        locs = model.spike.sample_locations(like, generator)
+    if locs is not None and mesh is not None:
+        locs = locs[dp.data_rows(mesh, image.shape[0])]
     return locs
 
 
 def _backward_and_step(state: SegState, loss: torch.Tensor, styl: torch.Tensor,
-                       train_styl: bool) -> None:
+                       train_styl: bool, mesh=None) -> None:
     """Backward, then the optimizer step with the stylization parameter's
     gradient zeroed unless ``train_styl``. A zero tensor, not None: JAX's
     optimizer sees a zero gradient and still decays the parameter. The hard
@@ -67,6 +74,8 @@ def _backward_and_step(state: SegState, loss: torch.Tensor, styl: torch.Tensor,
         loss.backward()
     if not train_styl or styl.grad is None:
         styl.grad = torch.zeros_like(styl)
+    if mesh is not None:
+        dp.mean_gradients(state.model.parameters(), mesh)
     state.optimizer.step()
     state.step += 1
 
@@ -74,22 +83,27 @@ def _backward_and_step(state: SegState, loss: torch.Tensor, styl: torch.Tensor,
 def learnable_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,
                          locs: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
-                         train_alpha: bool = True, device: DeviceLike = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         train_alpha: bool = True, device: DeviceLike = None,
+                         mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One joint step over every parameter (``image`` and ``label``
     channel-first); returns the detached ``(loss, alpha)``, alpha being the
     stylization parameter after the step (the reference logs its trajectory,
     ``gibbs_trajectory_*.txt``). ``train_alpha=False`` zeroes its gradient
     (the reference's no-GD scripts). ``device=None`` means ``"cuda"``; the
-    state must already live there."""
+    state must already live there.
+
+    ``mesh`` makes the step data-parallel (``image``, ``label`` this rank's
+    rows; ``locs`` the global batch's; the gradients, alpha's too, averaged
+    over ``data``; the loss the global mean), as ``seg_train_step``'s."""
     dev = resolve_device(device)
     image, label = image.to(dev), label.to(dev)
     model, styl = state.model, styl_param(state.model)
-    locs = _draws(model, image, locs, generator)
+    locs = _draws(model, image, locs, generator, mesh)
     state.optimizer.zero_grad(set_to_none=True)
     loss = dice_loss(model(image, locs), label)
-    _backward_and_step(state, loss, styl, train_alpha)
-    return loss.detach(), styl.detach()[0].clone()
+    _backward_and_step(state, loss, styl, train_alpha, mesh)
+    loss = loss.detach() if mesh is None else dp.global_mean(loss, mesh)
+    return loss, styl.detach()[0].clone()
 
 
 def fd_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,

@@ -10,6 +10,8 @@ JAX package: bfloat16 logits give a bfloat16 sigmoid.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -17,10 +19,13 @@ import torch.nn.functional as F
 def dice_loss(logits: torch.Tensor, targets: torch.Tensor, *,
               sigmoid: bool = True, squared_pred: bool = True,
               smooth_nr: float = 1e-5, smooth_dr: float = 1e-5,
-              include_background: bool = True) -> torch.Tensor:
+              include_background: bool = True,
+              sum_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> torch.Tensor:
     """Soft Dice loss over channel-first ``(B, C, *spatial)`` tensors:
     ``1 - (2*intersection + nr) / (sum(p^2) + sum(t^2) + dr)`` per
-    (batch, channel), averaged."""
+    (batch, channel), averaged. ``sum_over`` completes each spatial sum
+    when the volume is split over processes (an all-reduce)."""
     pred = logits
     if sigmoid:
         pred = 1.0 / (1.0 + torch.exp(-pred))
@@ -28,11 +33,13 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor, *,
         pred = pred[:, 1:]
         targets = targets[:, 1:]
     axes = tuple(range(2, pred.ndim))
-    intersection = torch.sum(targets * pred, dim=axes)
+    total = (lambda t: torch.sum(t, dim=axes)) if sum_over is None else (
+        lambda t: sum_over(torch.sum(t, dim=axes)))
+    intersection = total(targets * pred)
     if squared_pred:
-        denom = torch.sum(targets ** 2, dim=axes) + torch.sum(pred ** 2, dim=axes)
+        denom = total(targets ** 2) + total(pred ** 2)
     else:
-        denom = torch.sum(targets, dim=axes) + torch.sum(pred, dim=axes)
+        denom = total(targets) + total(pred)
     f = 1.0 - (2.0 * intersection + smooth_nr) / (denom + smooth_dr)
     return torch.mean(f)
 

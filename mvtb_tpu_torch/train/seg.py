@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.eval.dice import dice_scores, threshold_predictions
-from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig, stylize_batch
+from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig, sample_draws, stylize_batch
+from mvtb_tpu_torch.parallel import dp
 from mvtb_tpu_torch.train.losses import dice_loss
 
 
@@ -124,7 +125,7 @@ def seg_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,
                    draws: Optional[StageDraws] = None,
                    label_draws: Optional[StageDraws] = None,
                    generator: Optional[torch.Generator] = None,
-                   device: DeviceLike = None) -> torch.Tensor:
+                   device: DeviceLike = None, mesh=None) -> torch.Tensor:
     """One forward, backward and update step; returns the (detached) loss.
 
     ``image`` and ``label`` are channel-first ``(B, C, *spatial)``.
@@ -134,15 +135,22 @@ def seg_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,
     ``generator``. ``remat`` recomputes the forward during the backward
     (``torch.utils.checkpoint``), trading compute for activation memory.
     ``device=None`` means ``"cuda"``; the state must already live there.
+
+    ``mesh`` (a :class:`~mvtb_tpu_torch.parallel.mesh.Mesh`) makes the step
+    data-parallel: ``image`` and ``label`` are this rank's rows of the
+    global batch, the draws are the global batch's (``draws`` given, or
+    drawn from ``generator``, which must then be seeded alike on every
+    rank) cut to its rows, the gradients are averaged over ``data`` before
+    the optimizer, and the loss returned is the global mean. The state is
+    the replicated one (:func:`~mvtb_tpu_torch.parallel.mesh.replicate`), or
+    tensor-parallel (:func:`~mvtb_tpu_torch.parallel.tp.shard_state_tp`).
     """
     dev = resolve_device(device)
     image, label = image.to(dev), label.to(dev)
     if stylize_cfg is not None and stylize_cfg.any_enabled:
-        image = stylize_batch(image, stylize_cfg, draws=draws,
-                              generator=generator, device=dev)
+        image = _stylize(image, stylize_cfg, draws, generator, dev, mesh)
         if augment_label:
-            label = stylize_batch(label, stylize_cfg, draws=label_draws,
-                                  generator=generator, device=dev)
+            label = _stylize(label, stylize_cfg, label_draws, generator, dev, mesh)
     model, opt = state.model, state.optimizer
     opt.zero_grad(set_to_none=True)
     if remat:
@@ -151,9 +159,25 @@ def seg_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,
         logits = model(image)
     loss = dice_loss(logits, label)
     loss.backward()
+    if mesh is not None:
+        dp.mean_gradients(model.parameters(), mesh)
     opt.step()
     state.step += 1
-    return loss.detach()
+    return loss.detach() if mesh is None else dp.global_mean(loss, mesh)
+
+
+def _stylize(x: torch.Tensor, cfg: StylizeConfig, draws: Optional[StageDraws],
+             generator: Optional[torch.Generator], dev: torch.device,
+             mesh) -> torch.Tensor:
+    """``stylize_batch`` of a batch, or of this rank's rows of the global
+    batch under a mesh (the global draws cut to its rows)."""
+    if mesh is not None:
+        B = x.shape[0]
+        if draws is None:
+            draws = sample_draws(cfg, x.shape[2:], dp.global_batch_size(mesh, B),
+                                 x.shape[1], generator=generator, device=dev)
+        draws = draws.rows(dp.data_rows(mesh, B))
+    return stylize_batch(x, cfg, draws=draws, generator=generator, device=dev)
 
 
 def train_segmentation(state: SegState, data_iter, num_steps: int,

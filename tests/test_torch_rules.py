@@ -44,7 +44,9 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.experiments.manifest, mvtb_tpu_torch.eval.harness, "
             "mvtb_tpu_torch.eval.sliding_window, mvtb_tpu_torch.eval.plots, "
             "mvtb_tpu_torch.data, mvtb_tpu_torch.native, mvtb_tpu_torch.models.layers, "
-            "mvtb_tpu_torch.train.learnable, chip_smoke\n"
+            "mvtb_tpu_torch.train.learnable, mvtb_tpu_torch.parallel, "
+            "mvtb_tpu_torch.parallel.sharded_fft, mvtb_tpu_torch.parallel.spatial, "
+            "mvtb_tpu_torch.parallel.dp, mvtb_tpu_torch.parallel.collectives, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -135,6 +137,21 @@ def test_entry_points_default_to_the_card(no_card):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert lstate.step == 0
+
+
+def test_process_group_entry_points_default_to_the_card(no_card, monkeypatch):
+    """``device=None`` is the card for the parallel entry points too: with
+    no card they raise rather than start a gloo group."""
+    import torch.distributed as dist
+    from mvtb_tpu_torch.parallel import distributed_mesh, initialize, make_mesh
+
+    monkeypatch.setenv("MVTB_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("MVTB_NUM_PROCESSES", "2")
+    monkeypatch.setenv("MVTB_PROCESS_ID", "1")
+    for call in (initialize, make_mesh, distributed_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("make", [
