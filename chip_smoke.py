@@ -177,7 +177,38 @@ order, each fatal on failure:
    their norm), and a (data 1 x model 2) tensor-parallel step at the train
    phase's batch against the one-rank step (the same bounds); the 2-rank
    times are correctness runs on one shared card, not scaling numbers;
-14. timing with CUDA events: the plane kernel, its plain version and
+14. serve phase (``mvtb_tpu_torch.serve``: ``torch.export`` programs whose
+   kernels run as the custom ops of ``ops/_ops.py``): the served eval
+   program ``UNet(stylize_batch(x))`` on ``plane`` at 2x4x240x240x160 with
+   the full-width UNet in float32, saved as a batch-polymorphic
+   ``ServingBundle`` (weights as inputs) and loaded in a process that
+   imports only ``mvtb_tpu_torch.serve`` (no model module may load there),
+   served at B = 2 and 1 and with other weights, each within 1e-5 of the
+   max of the eager call, one plane launch a served call (counted inside
+   the op), the program file smaller than the weights; ``stylize_batch`` on
+   ``dft_pallas`` at the bench shape exported on the card (bit-equality
+   with eager reported, held to 5e-5 of the max; r2c, c2c, c2r launched 1,
+   4, 1 times a call at ``high`` on the tensor-core body); S&P and the
+   polar round trip in one program exported on the CPU and moved to the
+   card by ``load_fn`` at 4x240x240x155 (S&P bit-equal to its plain
+   version, its seed a program input; polar within 1e-6 elementwise; one
+   launch each); ``export_sharded_fn`` of the data-sharded UNet forward on
+   an NCCL world of one against the plain forward; export, save and load
+   seconds, program and weight bytes, served against eager ms (CUDA events,
+   median of 5); what the custom-op wrapping costs: the train step and
+   ``stylize_batch`` on ``dft_pallas`` with the axis kernels reached through
+   the op against the direct launch, in turns, and the host's time per
+   small axis call;
+15. compat phase, in a process of its own: ``compat.install()`` and the
+   reference's ``baseline.py`` training loop verbatim through the bare
+   ``monai`` names (``UNet(dimensions=3, ...)`` 16..256 on ``cuda:0``,
+   ``DiceLoss(...).backward()``, Adam with amsgrad), 3 steps on a 2-volume
+   4x128x128x64 batch from the shim's pipeline over a NIfTI tree, TF32 off
+   and deterministic cuDNN; the first step's loss and gradients against the
+   same loop on the CPU (within 1e-4 of the max); the ``Gibbs_UNet``
+   facade's finite-difference alpha update on the card (alpha moves and is
+   not a parameter);
+16. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -2945,17 +2976,450 @@ def parallel_phase(dev) -> dict:
     return res
 
 
-def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl) -> list:
+# --------------------------------------------------------------------------
+# serving: torch.export programs with the kernels as custom ops
+# --------------------------------------------------------------------------
+
+SERVE_TOL = 1e-5  # served program against its eager call, of the max
+SERVE_TIMED = 5  # CUDA-event calls per median
+SERVE_SHARDED_SHAPE = (2, 4, 128, 128, 64)
+OP_TURNS, OP_STEPS = 2, 4  # op vs direct launch: rounds in turns, steps a round
+DISPATCH_CALLS = 200
+
+
+def _serve_subprocess(bundle: str, io_dir: str) -> dict:
+    """Load the bundle in a process that imports only ``mvtb_tpu_torch.serve``
+    (no model class) and serve the saved inputs; its results come back
+    through ``io_dir``."""
+    code = f"""
+import json, statistics, sys, time, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+from mvtb_tpu_torch.serve import ServingBundle
+from mvtb_tpu_torch.ops import fused_plane
+serve = ServingBundle.load({bundle!r})
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+inp = torch.load({io_dir!r} + "/inputs.pt", map_location="cuda", weights_only=False)
+outs, launches = {{}}, {{}}
+with torch.no_grad():
+    for name in ("b2", "b1"):
+        fused_plane.plane_stylize_half.launches = 0
+        outs[name] = serve(*inp[name])
+        torch.cuda.synchronize()
+        launches[name] = fused_plane.plane_stylize_half.launches
+    swapped = ServingBundle.load({bundle!r}, params=inp["params2"])
+    outs["b2_params2"] = swapped(*inp["b2"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range({SERVE_TIMED}):
+        start.record()
+        serve(*inp["b2"])
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+torch.save({{k: v.cpu() for k, v in outs.items()}}, {io_dir!r} + "/outputs.pt")
+bad = [m for m in sys.modules if m.startswith("mvtb_tpu_torch.models")
+       or m.split(".")[0] in ("jax", "flax", "mvtb_tpu")]
+print(json.dumps({{"load_s": load_s, "launches": launches, "served_ms": ms,
+                  "served_ms_median": statistics.median(ms), "models_imported": bad}}))
+sys.exit(1 if bad else 0)
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"the bundle's serving process failed:\n{res.stdout}\n{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _served_eval(dev, tmp: str) -> dict:
+    """The served eval program: ``UNet(stylize_batch(x))`` on ``plane`` at the
+    slice shape, a batch-polymorphic bundle loaded in a process without
+    model code, served at B = 2 and 1, and with other weights."""
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.ops import fused
+    from mvtb_tpu_torch.serve import ServingBundle
+
+    torch.manual_seed(40)
+    model = UNet(4, 3, device=dev).eval()
+    model2 = UNet(4, 3, device=dev).eval()
+    cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="plane")
+
+    def eval_fn(params, x, draws):
+        styled = fused.stylize_batch(x, cfg, draws, device=x.device)
+        return torch.func.functional_call(model, params, (styled,))
+
+    params, params2 = dict(model.state_dict()), dict(model2.state_dict())
+    g = torch.Generator(device=dev).manual_seed(41)
+    B, C = SLICE_SHAPE[:2]
+    x = torch.randn(SLICE_SHAPE, generator=g, device=dev)
+    draws = fused.sample_draws(cfg, SLICE_SHAPE[2:], B, C, generator=g, device=dev)
+    x1 = torch.randn((1,) + SLICE_SHAPE[1:], generator=g, device=dev)
+    draws1 = fused.sample_draws(cfg, SLICE_SHAPE[2:], 1, C, generator=g, device=dev)
+    bundle = os.path.join(tmp, "bundle")
+    t0 = time.perf_counter()
+    ServingBundle.save(bundle, eval_fn, params, (x, draws), batch_polymorphic=True,
+                       extra_meta={"task": "corrupted-validation inference"})
+    save_s = time.perf_counter() - t0
+    torch.save({"b2": (x, draws), "b1": (x1, draws1), "params2": params2},
+               os.path.join(tmp, "inputs.pt"))
+    sub = _serve_subprocess(bundle, tmp)
+    served = torch.load(os.path.join(tmp, "outputs.pt"), weights_only=True)
+    errs = {}
+    with torch.no_grad():
+        for name, (xi, di), p in (("b2", (x, draws), params), ("b1", (x1, draws1), params),
+                                  ("b2_params2", (x, draws), params2)):
+            eager = eval_fn(p, xi, di)
+            errs[name] = rel_err(served[name].to(dev), eager)
+            check(tuple(served[name].shape) == tuple(eager.shape), f"served {name} shape")
+            check(errs[name] <= SERVE_TOL, f"served eval {name} vs eager: {errs[name]:.3e}")
+            del eager
+        eager_ms = [cuda_ms(lambda: eval_fn(params, x, draws), 1, warmup=0)
+                    for _ in range(SERVE_TIMED)]
+    check(sub["launches"] == {"b2": 1, "b1": 1},
+          f"the served eval program launched the plane kernel {sub['launches']} times a call")
+    check(not torch.equal(served["b2"], served["b2_params2"]), "swapped params, same output")
+    meta = ServingBundle.meta(bundle)
+    check(meta["batch_polymorphic"] and meta["export_device"] == "cuda",
+          f"meta {dict(meta, params=len(meta['params']))}")
+    sizes = {name: os.path.getsize(os.path.join(bundle, f)) for name, f in
+             (("program_bytes", ServingBundle.PROGRAM), ("params_bytes", ServingBundle.PARAMS))}
+    check(sizes["program_bytes"] < sizes["params_bytes"],
+          f"the program file holds more than the weights: {sizes}")
+    return {"export_s": meta["export_s"], "save_s": save_s - meta["export_s"], **sub,
+            "rel_err_vs_eager": errs, "eager_ms": eager_ms,
+            "eager_ms_median": statistics.median(eager_ms), **sizes,
+            "inputs": meta["inputs"]}
+
+
+def _served_stylize(dev) -> dict:
+    """``stylize_batch`` on ``dft_pallas`` at the bench shape, exported on the
+    card and served: r2c, c2c, c2r launched 1, 4, 1 times a call at ``high``
+    on the tensor-core body."""
+    from mvtb_tpu_torch.ops import fused, pallas_dft
+    from mvtb_tpu_torch.serve import export_fn, load_fn
+
+    cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
+    g = torch.Generator(device=dev).manual_seed(42)
+    B, C = BENCH_SHAPE[:2]
+    x = torch.randn(BENCH_SHAPE, generator=g, device=dev)
+    draws = fused.sample_draws(cfg, BENCH_SHAPE[2:], B, C, generator=g, device=dev)
+
+    def styl(img, d):
+        return fused.stylize_batch(img, cfg, d, device=img.device)
+
+    t0 = time.perf_counter()
+    served = load_fn(export_fn(styl, (x, draws)), device=dev)
+    export_load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        _zero_launch_counts()
+        pallas_dft.tier_launches.clear()
+        out = served(x, draws)
+        torch.cuda.synchronize()
+        launches, tiers = _launch_counts(), dict(pallas_dft.tier_launches)
+        eager = styl(x, draws)
+        err = rel_err(out, eager)
+        served_ms = cuda_ms(lambda: served(x, draws), SERVE_TIMED)
+        eager_ms = cuda_ms(lambda: styl(x, draws), SERVE_TIMED)
+    check(err <= STYLIZE_TOL, f"served stylize vs eager: {err:.3e} > {STYLIZE_TOL}")
+    for body, n in LAUNCHES_PER_STEP.items():
+        check(launches[f"axis_dft_{body}"] == n, f"served stylize: {body} {launches}")
+        key = (body, "wgmma", PATH_TIER)
+        check(tiers.get(key, 0) == n, f"served stylize: {body} {tiers}")
+    check(not any(v for k, v in launches.items() if not k.startswith("axis_dft")),
+          f"served stylize launched another kernel: {launches}")
+    return {"bit_equal_to_eager": bool(torch.equal(out, eager)), "rel_err_vs_eager": err,
+            "launches": launches,
+            "launches_by_route_and_tier": {" ".join(k): v for k, v in tiers.items()},
+            "export_and_load_s": export_load_s, "served_ms": served_ms, "eager_ms": eager_ms}
+
+
+def _served_pointwise(dev) -> dict:
+    """S&P and the polar round trip in one program, exported on the CPU and
+    moved to the card by ``load_fn``: S&P bit-equal to its plain version,
+    polar within POLAR_TOL elementwise, one launch of each a call."""
+    from mvtb_tpu_torch.ops import pallas_kernels as pk
+    from mvtb_tpu_torch.serve import export_fn, load_fn
+
+    def fn(x, p, seed, re, im):
+        return (pk.salt_and_pepper_pallas(x, p, seed),) + pk.polar_roundtrip_pallas(re, im)
+
+    shape = POINTWISE_SHAPES["volume"]
+    cpu_args = (torch.zeros(shape), torch.tensor(0.05), torch.tensor(7),
+                torch.zeros(shape), torch.zeros(shape))
+    served = load_fn(export_fn(fn, cpu_args), device=dev)
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.randn(shape, generator=g, device=dev)
+    re, im = polar_inputs(shape, dev, seed=44)
+    p, seed = torch.tensor(0.05, device=dev), torch.tensor(1234, device=dev)
+    _zero_launch_counts()
+    out = served(x, p, seed, re, im)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    sap_equal = torch.equal(out[0], pk.salt_and_pepper_plain(x, 0.05, 1234))
+    polar_err = max(elementwise_rel(a, b) for a, b in
+                    zip(out[1:], pk.polar_roundtrip_plain(re, im)))
+    check(sap_equal, "served S&P vs plain: not bit-equal")
+    check(polar_err <= POLAR_TOL, f"served polar vs plain: {polar_err:.3e}")
+    check(launches["sap"] == 1 and launches["polar"] == 1
+          and not any(v for k, v in launches.items() if k not in ("sap", "polar")),
+          f"served S&P + polar launches {launches}")
+    reseeded = served(x, p, seed + 1, re, im)[0]
+    check(not torch.equal(reseeded, out[0]), "the served S&P ignores its seed input")
+    return {"export_device": "cpu", "sap_bit_equal": sap_equal, "polar_max_rel_err": polar_err,
+            "launches": launches}
+
+
+def _served_sharded(dev) -> dict:
+    """``export_sharded_fn`` on an NCCL world of one: the per-rank program of
+    the data-sharded UNet forward against the plain forward."""
+    import torch.distributed as dist
+
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.parallel import batch_sharding, make_mesh
+    from mvtb_tpu_torch.serve import export_sharded_fn, load_fn, module_fn
+
+    check(not dist.is_initialized(), "a process group is already running")
+    mesh = make_mesh(device=dev)
+    try:
+        torch.manual_seed(45)
+        model = UNet(4, 3, device=dev).eval()
+        params = dict(model.state_dict())
+        x = torch.randn(SERVE_SHARDED_SHAPE, generator=torch.Generator(device=dev).manual_seed(46),
+                        device=dev)
+        rows = batch_sharding(mesh, 5)
+        served = load_fn(export_sharded_fn(module_fn(model), (params, x), mesh=mesh,
+                                           in_shardings=(None, rows)), device=dev)
+        with torch.no_grad():
+            local = rows.local(x)
+            err = rel_err(served(params, local), model(local))
+        check(err <= SERVE_TOL, f"sharded served forward vs plain: {err:.3e}")
+        return {"backend": dist.get_backend(), "mesh": served.mesh_shape,
+                "rel_err_vs_plain": err}
+    finally:
+        dist.destroy_process_group()
+
+
+def _op_overhead(dev) -> dict:
+    """What the custom-op wrapping costs: the train step and ``stylize_batch``
+    on ``dft_pallas`` with the axis kernels reached through ``mvtb::axis_dft``
+    against the same launches called directly (the wrappers before the ops),
+    in turns; and the host's time per call of one small axis kernel."""
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.ops import _ops, fused, pallas_dft
+    from mvtb_tpu_torch.train import create_seg_state, reference_optimizer, seg_train_step
+
+    op = _ops.axis_dft
+
+    def direct(body, lane, ins, mats, precision):
+        return list(pallas_dft.launch(body, lane, ins, mats, precision))
+
+    torch.manual_seed(47)
+    model = UNet(4, 3, device=dev, dtype=torch.bfloat16)
+    state = create_seg_state(model, reference_optimizer(model.parameters()), device=dev)
+    cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
+    g = torch.Generator(device=dev).manual_seed(48)
+    B = TRAIN_SHAPE[0]
+    image = torch.randn(TRAIN_SHAPE, generator=g, device=dev)
+    label = (torch.rand((B, 3) + TRAIN_SHAPE[2:], generator=g, device=dev) < 0.3).float()
+    bench = torch.randn(BENCH_SHAPE, generator=g, device=dev)
+    small = [torch.randn(64, 16, device=dev)]
+    small_mats = pallas_dft._dft.device_mats("half", 16, False, dev)
+    res = {k: {"custom_op": [], "direct": []} for k in
+           ("train_step_ms", "stylize_batch_ms", "host_us_per_small_axis_call")}
+    try:
+        for _ in range(OP_TURNS):
+            for mode in ("custom_op", "direct", "direct", "custom_op"):
+                _ops.axis_dft = op if mode == "custom_op" else direct
+                for _ in range(OP_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    seg_train_step(state, image, label, cfg, generator=g, device=dev)
+                    torch.cuda.synchronize()
+                    res["train_step_ms"][mode].append((time.perf_counter() - t0) * 1e3)
+                with torch.no_grad():
+                    res["stylize_batch_ms"][mode].append(cuda_ms(
+                        lambda: fused.stylize_batch(bench, cfg, generator=g, device=dev), 3))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DISPATCH_CALLS):
+                    pallas_dft.lane_call("r2c", small, small_mats, PATH_TIER)
+                res["host_us_per_small_axis_call"][mode].append(
+                    (time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+                torch.cuda.synchronize()
+    finally:
+        _ops.axis_dft = op
+    return {k: {**v, **{f"{m}_median": statistics.median(v[m]) for m in v}}
+            for k, v in res.items()}
+
+
+def serve_phase(dev) -> dict:
+    import tempfile
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["eval_program"] = _served_eval(dev, tmp)
+    res["stylize_program"] = _served_stylize(dev)
+    res["pointwise_program"] = _served_pointwise(dev)
+    res["sharded_world1"] = _served_sharded(dev)
+    res["custom_op_overhead"] = _op_overhead(dev)
+    return res
+
+
+# --------------------------------------------------------------------------
+# compat: the reference's scripts through the port's shims
+# --------------------------------------------------------------------------
+
+COMPAT_SHAPE = (128, 128, 64)
+COMPAT_STEPS = 3
+COMPAT_TOL = 1e-4  # card against CPU, first step: loss and gradients, of the max
+
+
+def compat_phase(dev) -> dict:
+    """In a process of its own (the bare ``monai`` stays out of this one):
+    the reference's ``baseline.py`` training loop verbatim through
+    ``compat.install()``, 3 Adam steps on the card on a 2-volume batch from
+    the shim's pipeline, its first step against the same loop on the CPU;
+    and the ``Gibbs_UNet`` facade's finite-difference alpha update."""
+    import tempfile
+
+    code = f"""
+import json, sys, time, numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from mvtb_tpu_torch import compat
+compat.install()
+from monai.apps import DecathlonDataset
+from monai.data import DataLoader
+from monai.losses import DiceLoss
+from monai.networks.nets import UNet
+from monai.transforms import (AsChannelFirstd, CenterSpatialCropd, Compose, LoadImaged,
+    MapTransform, NormalizeIntensityd, Orientationd, Spacingd, ToTensord)
+from monai.utils import set_determinism
+from stylization_layers import Gibbs_UNet
+from mvtb_tpu_torch.data.synthetic import build_decathlon_tree
+
+class ConvertToMultiChannelBasedOnBratsClassesd(MapTransform):
+    def __call__(self, data):
+        d = dict(data)
+        for key in self.keys:
+            result = [np.logical_or(d[key] == 2, d[key] == 3),
+                      np.logical_or(np.logical_or(d[key] == 2, d[key] == 3), d[key] == 1),
+                      d[key] == 2]
+            d[key] = np.stack(result, axis=0).astype(np.float32)
+        return d
+
+root = sys.argv[1]
+t0 = time.perf_counter()
+build_decathlon_tree(root, n=2, spatial={COMPAT_SHAPE}, kind="smooth",
+                     affine=np.diag([1.5, 1.5, 2.0, 1.0]))
+set_determinism(seed=0)
+transform = Compose([
+    LoadImaged(keys=["image", "label"]), AsChannelFirstd(keys="image"),
+    ConvertToMultiChannelBasedOnBratsClassesd(keys="label"),
+    Spacingd(keys=["image", "label"], pixdim=(1.5, 1.5, 2.0), mode=("bilinear", "nearest")),
+    Orientationd(keys=["image", "label"], axcodes="RAS"),
+    CenterSpatialCropd(keys=["image", "label"], roi_size={list(COMPAT_SHAPE)}),
+    NormalizeIntensityd(keys="image", nonzero=True, channel_wise=True),
+    ToTensord(keys=["image", "label"])])
+train_ds = DecathlonDataset(root_dir=root, task="Task01_BrainTumour", transform=transform,
+                            section="training", download=False, cache_num=100)
+train_loader = DataLoader(train_ds, batch_size=2, shuffle=True, num_workers=4)
+batch_data = next(iter(train_loader))
+data_s = time.perf_counter() - t0
+
+def run(device, start=None, steps={COMPAT_STEPS}):
+    model = UNet(dimensions=3, in_channels=4, out_channels=3, channels=(16, 32, 64, 128, 256),
+                 strides=(2, 2, 2, 2), num_res_units=2, device=device).to(device)
+    if start is not None:
+        model.load_state_dict(start)
+    init = {{k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
+    loss_function = DiceLoss(to_onehot_y=False, sigmoid=True, squared_pred=True)
+    optimizer = torch.optim.Adam(model.parameters(), 1e-4, weight_decay=1e-5, amsgrad=True)
+    losses, grads, ms = [], None, []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        inputs, labels = (batch_data["image"].to(device), batch_data["label"].to(device))
+        optimizer.zero_grad()
+        outputs = model(inputs)
+        loss = loss_function(outputs, labels)
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if grads is None:
+            grads = {{k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}}
+    return init, losses, grads, ms, sum(p.numel() for p in model.parameters())
+
+init, losses, grads, ms, n_params = run(torch.device("cuda:0"))
+t0 = time.perf_counter()
+_, cpu_losses, cpu_grads, _, _ = run(torch.device("cpu"), start=init, steps=1)
+cpu_s = time.perf_counter() - t0
+gmax = max(float(v.abs().max()) for v in cpu_grads.values())
+grad_err = max(float((grads[k] - v).abs().max()) for k, v in cpu_grads.items()) / gmax
+
+# the Gibbs_UNet facade's finite-difference alpha update on the card
+device = torch.device("cuda:0")
+model = Gibbs_UNet(0.7).to(device)
+loss_function = DiceLoss(to_onehot_y=False, sigmoid=True, squared_pred=True)
+inputs = batch_data["image"][:1, :1].to(device)
+labels = batch_data["label"][:1, 1:2].to(device)
+
+@torch.no_grad()
+def Gibbs_GD(inputs, labels, model, h=0.05, learning_rate=0.2):
+    old_alpha = model.gibbs.alpha.clone()
+    loss_0 = loss_function(model(inputs), labels)
+    model.gibbs.alpha = old_alpha + h
+    loss_h = loss_function(model(inputs), labels)
+    delta = (loss_h - loss_0) / h
+    model.gibbs.alpha = old_alpha - learning_rate * delta
+    return loss_0.item(), model.gibbs.alpha.item()
+
+gd_loss, alpha = Gibbs_GD(inputs, labels, model)
+print(json.dumps({{"unet_params": n_params, "losses": losses, "step_ms": ms,
+                  "cpu_first_loss": cpu_losses[0], "first_loss_diff": abs(losses[0] - cpu_losses[0]),
+                  "first_step_grad_err_over_max": grad_err, "cpu_step_s": cpu_s,
+                  "data_s": data_s, "gibbs_fd": {{"loss": gd_loss, "alpha_before": 0.7,
+                  "alpha_after": alpha, "alpha_in_parameters": any(
+                      p is model.gibbs.alpha for p in model.parameters())}},
+                  "monai_file": sys.modules["monai"].__file__}}))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([sys.executable, "-c", code, tmp], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"the compat process failed:\n{res.stdout}\n{res.stderr}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    check("mvtb_tpu_torch/compat" in out["monai_file"], f"monai is {out['monai_file']}")
+    check(out["unet_params"] == 4_810_074, f"UNet has {out['unet_params']} parameters")
+    check(all(math.isfinite(v) for v in out["losses"]), f"losses {out['losses']}")
+    check(out["first_loss_diff"] <= COMPAT_TOL * max(1.0, abs(out["cpu_first_loss"])),
+          f"card vs CPU first loss: {out['losses'][0]} vs {out['cpu_first_loss']}")
+    check(out["first_step_grad_err_over_max"] <= COMPAT_TOL,
+          f"card vs CPU first-step gradients: {out['first_step_grad_err_over_max']:.3e}")
+    fd = out["gibbs_fd"]
+    check(fd["alpha_after"] != fd["alpha_before"] and not fd["alpha_in_parameters"],
+          f"Gibbs_UNet finite-difference update {fd}")
+    return out
+
+
+def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
-    path, the runner's fast profile and the domain runs' (timed at the eval
-    slice), each axis kernel from the train path, the fused-rest paths, the
-    domain run on ``dft_pallas`` and the data-parallel step (timed at the
-    train shape)."""
+    path, the runner's fast profile, the domain runs' and the served eval
+    program's (timed at the eval slice), each axis kernel from the train
+    path, the fused-rest paths, the domain run on ``dft_pallas``, the
+    data-parallel step and the served stylize (timed at the train shape),
+    the pointwise kernels from the corruption path and the served S&P +
+    polar program."""
     main_t = tm["plane slice"]
     domain = dm["runs"]
+    served = sv["eval_program"]["launches"]
     by_path = {"eval_slice": sl["launches"],
                "runner_fast": rn["fast"]["launches"]["fused_plane"],
-               "domain_plane_fast": domain["plane_fast"]["launches"]["fused_plane"]}
+               "domain_plane_fast": domain["plane_fast"]["launches"]["fused_plane"],
+               "served_eval": sum(served.values())}
     kernels = [{
         "name": "fused_plane", "route": "cuda",
         "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
@@ -2976,13 +3440,15 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl) -> list:
         worst_row = max(rows, key=lambda r: r["bound_ms"])
         on_domain = domain["dft_pallas"]["launches"][f"axis_dft_{body}"]
         on_dp = pl["dp_world1"]["launches"][f"axis_dft_{body}"]
+        on_served = sv["stylize_program"]["launches"][f"axis_dft_{body}"]
         kernels.append({
             "name": f"axis_dft_{body}", "route": "cuda",
             "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
             "replaces": AXIS_REPLACES[body],
-            "launches": tr["launches"][body] + rest[body] + on_domain + on_dp,
+            "launches": tr["launches"][body] + rest[body] + on_domain + on_dp + on_served,
             "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body],
-                                 "domain_dft_pallas": on_domain, "parallel_dp": on_dp},
+                                 "domain_dft_pallas": on_domain, "parallel_dp": on_dp,
+                                 "served_stylize": on_served},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
@@ -2990,9 +3456,13 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl) -> list:
     # the pointwise kernels from the corruption path, timed at its volume
     for name in ("sap", "polar"):
         t = pt[name]
+        on_served = sv["pointwise_program"]["launches"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": "mvtb_tpu_torch/csrc/pointwise.cu",
-            "replaces": POINTWISE_REPLACES[name], "launches": cp["launches"][name],
+            "replaces": POINTWISE_REPLACES[name],
+            "launches": cp["launches"][name] + on_served,
+            "launches_by_path": {"corruption": cp["launches"][name],
+                                 "served_pointwise": on_served},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})  # no single PyTorch call: see composite_torch_ms
@@ -3080,6 +3550,14 @@ def main() -> int:
     pl = parallel_phase(dev)
     pl["seconds"] = time.perf_counter() - t0
     out({"parallel_phase": pl, "card": smi})
+    t0 = time.perf_counter()
+    sv = serve_phase(dev)
+    sv["seconds"] = time.perf_counter() - t0
+    out({"serve_phase": sv, "card": smi})
+    t0 = time.perf_counter()
+    cm = compat_phase(dev)
+    cm["seconds"] = time.perf_counter() - t0
+    out({"compat_phase": cm, "card": smi})
 
     t0 = time.perf_counter()
     tm = timing_phase(dev)
@@ -3091,7 +3569,7 @@ def main() -> int:
     pt = pointwise_timing(dev)
     out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl)
+    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",

@@ -24,10 +24,16 @@ window and plots, and ``data``'s NIfTI, preprocessing, loaders and
 hospitals over the host's C++ reader and resampler in ``native``),
 learnable stylization (``models.layers``' Gibbs and spike layers,
 ``train.learnable``'s joint and finite-difference steps, and the runner's
-learnable kinds) and parallelism (``parallel``: the ``(data, model)``
+learnable kinds), parallelism (``parallel``: the ``(data, model)``
 process mesh, multi-process start-up, data- and tensor-parallel train
 steps, the H-split k-space stylization and the H-split UNet step with
-halo exchanges).
+halo exchanges), serving (``serve``: ``torch.export`` programs and weight
+bundles, every hand-written kernel a custom op of ``ops._ops``), the
+reference-script shims (``compat``: ``filters_and_operators``,
+``stylization_layers``, ``utils`` and ``monai``) and ``utils`` (profiler
+traces, step timing, determinism). Every module of the JAX package has a
+counterpart here; ``utils.enable_compilation_cache`` (XLA's cache) and the
+JAX shim's numpy ``ArrayTensor`` have none.
 """
 
 from mvtb_tpu_torch._device import resolve_device

@@ -21,6 +21,7 @@ stylize path carries.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
@@ -96,9 +97,10 @@ def _half_idft_matrix_np(n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _split(x: torch.Tensor, axis: int):
+    # math.prod keeps a symbolic batch size symbolic under torch.export
     axis = axis % x.ndim
-    pre = int(np.prod(x.shape[:axis], dtype=np.int64))
-    post = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    pre = math.prod(x.shape[:axis])
+    post = math.prod(x.shape[axis + 1:])
     return axis, x.reshape(pre, x.shape[axis], post)
 
 
@@ -187,7 +189,13 @@ def device_mats(kind: str, n: int, inverse: bool,
         mats = _half_idft_matrix_np(n)
     else:
         raise ValueError(f"unknown matrix kind {kind!r}")
-    return tuple(torch.from_numpy(m).to(device) for m in mats)
+    # Made outside torch.export's fake and tracing modes, so the cache holds
+    # real tensors and an exported program lifts them as constants on the
+    # export device instead of copying them from the host on every call.
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return tuple(torch.from_numpy(m).to(device) for m in mats)
 
 
 def contract(x: torch.Tensor, mat: torch.Tensor, axis: int,

@@ -184,6 +184,12 @@ class StageDraws:
             raise ValueError(f"StageDraws lacks {missing} for this config")
 
 
+# An export input: a stylize exports as ``fn(x, draws)`` with the draws as
+# tensor inputs (the counterpart of JAX's key data); None fields stay None.
+torch.export.register_dataclass(
+    StageDraws, serialized_type_name="mvtb_tpu_torch.ops.fused.StageDraws")
+
+
 def sample_draws(cfg: StylizeConfig, spatial, B: int, C: int,
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None) -> StageDraws:

@@ -8,10 +8,11 @@ For each (channel, half-H) plane of the H-axis half spectrum the kernel runs
     -> inverse DFT over D -> inverse DFT over W
 
 with Gauss's 3-product complex contraction against the matrices of
-:mod:`mvtb_tpu_torch.ops.dft`. :func:`plane_stylize_half` launches the CUDA
-kernel (``csrc/fused_plane.cu``) on a CUDA tensor and runs
-:func:`plane_stylize_half_plain`, the same function in plain PyTorch, on a
-CPU tensor. On a CUDA tensor it launches the kernel or raises.
+:mod:`mvtb_tpu_torch.ops.dft`. :func:`plane_stylize_half` calls the custom
+op ``mvtb::fused_plane`` (:mod:`._ops`), which ``torch.export`` traces: on a
+CUDA tensor it launches the CUDA kernel (``csrc/fused_plane.cu``,
+:func:`launch`) or raises; on a CPU tensor it runs
+:func:`plane_stylize_half_plain`, the same function in plain PyTorch.
 
 Precision tiers, the TPU kernel's own: ``fast=False`` (``fft_backend="plane"``)
 is bf16x3: every operand x splits into bfloat16 ``hi = bf16(x)`` and
@@ -309,15 +310,27 @@ def plane_stylize_half(k_re, k_im, spatial, flags, wparams, locs, vals, gates,
     ``gates``, ``conjs``, ``scales`` (S, N) float32 describe the S point
     writes in stage order. Returns the (re, im) float32 planes.
 
-    A CPU tensor runs :func:`plane_stylize_half_plain`; a CUDA tensor
-    launches the kernel and counts the launch in
-    ``plane_stylize_half.launches``.
+    A thin call of the custom op ``mvtb::fused_plane`` (:mod:`._ops`): a
+    CPU tensor runs :func:`plane_stylize_half_plain`; a CUDA tensor
+    launches the kernel (:func:`launch`), which counts the launch in
+    ``plane_stylize_half.launches``; any other device raises.
     """
-    if k_re.device.type == "cpu":
-        return plane_stylize_half_plain(k_re, k_im, spatial, flags, wparams,
-                                        locs, vals, gates, conjs, scales, fast)
-    if k_re.device.type != "cuda":
+    if k_re.device.type not in ("cpu", "cuda"):
         raise ValueError(f"plane_stylize_half: no kernel for {k_re.device}")
+    from mvtb_tpu_torch.ops import _ops
+
+    return _ops.fused_plane(k_re, k_im, [int(n) for n in spatial],
+                            [bool(f) for f in flags], wparams, locs, vals, gates,
+                            conjs, scales, bool(fast))
+
+
+def launch(k_re, k_im, spatial, flags, wparams, locs, vals, gates, conjs,
+           scales, fast: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel launch behind :func:`plane_stylize_half` on CUDA tensors
+    (the CUDA implementation of ``mvtb::fused_plane``): checks every
+    argument, allocates the outputs and the scratch, launches on the
+    current stream and counts the launch. Raises on what the kernel does
+    not take or on a failed launch."""
     H, W, D = (int(n) for n in spatial)
     N, Hh = k_re.shape[:2]
     S = locs.shape[0]

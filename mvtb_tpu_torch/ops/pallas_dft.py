@@ -27,9 +27,11 @@ Precision tiers (:data:`TIERS`), those of the TPU kernels' ``_fast``:
 * ``"default"`` (JAX ``DEFAULT``, ``"1x"``): every operand rounded to bf16
   once, float32 accumulation.
 
-On a CUDA tensor a wrapper launches the kernel (or raises), adds one to
-``launches[body]`` and to ``tier_launches[(body, route, precision)]``; on a
-CPU tensor it runs :func:`plain`, the same function in plain PyTorch
+The wrappers call the custom op ``mvtb::axis_dft`` (:mod:`._ops`), which
+``torch.export`` traces. On a CUDA tensor it launches the kernel
+(:func:`launch`) or raises, and adds one to ``launches[body]`` and to
+``tier_launches[(body, route, precision)]``; on a CPU tensor it runs
+:func:`plain`, the same function in plain PyTorch
 (``torch.matmul`` over the same views, on the tier's bf16 parts as float32
 values, whose products are exact), and counts nothing. Routes: every body at
 ``"high"`` and ``"default"`` runs the tensor-core body (``"wgmma"``), whose
@@ -224,17 +226,40 @@ def _check(name, t, shape, device):
 
 
 def _call(body: str, lane: bool, ins, mats, precision: str):
+    """Validate a call and hand it to the custom op ``mvtb::axis_dft``
+    (:mod:`._ops`): a CPU tensor runs :func:`plain`, a CUDA tensor
+    :func:`launch`, any other device raises."""
     if body not in BODIES:
         raise ValueError(f"unknown kernel body {body!r}")
-    n_ins, n_mats, n_outs = ARITY[body]
+    n_ins, n_mats, _ = ARITY[body]
     if len(ins) != n_ins or len(mats) != n_mats:
         raise ValueError(f"{body} takes {n_ins} inputs and {n_mats} matrices")
+    check_tier(precision)
+    dev = ins[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"axis_dft {body}: no kernel for {dev}")
+    from mvtb_tpu_torch.ops import _ops
+
+    return tuple(_ops.axis_dft(body, lane, list(ins), list(mats), precision))
+
+
+def out_view(body: str, lane: bool, view: Sequence[int], n_out: int):
+    """(number of outputs, output view) of kernel ``body`` on an input view."""
+    if lane:
+        return ARITY[body][2], (view[0], n_out)
+    return ARITY[body][2], (view[0], n_out, view[2])
+
+
+def launch(body: str, lane: bool, ins, mats, precision: str):
+    """The kernel launch behind :func:`lane_call` / :func:`sub_call` on CUDA
+    tensors (the CUDA implementation of ``mvtb::axis_dft``): checks every
+    argument, packs the tensor-core body's matrices (cached by the
+    matrices' identity, so an exported program's lifted constants pack
+    once), allocates the outputs, launches on the current stream and counts
+    the launch by body and by (body, route, tier)."""
+    n_ins, n_mats, _ = ARITY[body]
     path = route(body, precision)
     dev = ins[0].device
-    if dev.type == "cpu":
-        return plain(body, lane, ins, mats, precision)
-    if dev.type != "cuda":
-        raise ValueError(f"axis_dft {body}: no kernel for {dev}")
     view = tuple(ins[0].shape)
     if len(view) != (2 if lane else 3):
         raise ValueError(f"axis_dft {body}: bad view {view}")
@@ -244,13 +269,11 @@ def _call(body: str, lane: bool, ins, mats, precision: str):
         _check(f"input {i}", t, view, dev)
     for i, m in enumerate(mats):
         _check(f"matrix {i}", m, (n_in, n_out), dev)
-    if lane:
-        batch, length, out_view = 1, view[0], (view[0], n_out)
-    else:
-        batch, length, out_view = view[0], view[2], (view[0], n_out, view[2])
-    outs = tuple(torch.empty(out_view, dtype=torch.float32, device=dev)
+    batch, length = (1, view[0]) if lane else (view[0], view[2])
+    n_outs, shape = out_view(body, lane, view, n_out)
+    outs = tuple(torch.empty(shape, dtype=torch.float32, device=dev)
                  for _ in range(n_outs))
-    if any(n == 0 for n in out_view) or n_in == 0:
+    if any(n == 0 for n in shape) or n_in == 0:
         return outs
     ptr = [t.data_ptr() for t in ins] + [None] * (2 - n_ins)
     optr = [o.data_ptr() for o in outs] + [None] * (2 - n_outs)

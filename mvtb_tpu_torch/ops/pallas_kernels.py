@@ -15,8 +15,10 @@ Two kernels, one source (``csrc/pointwise.cu``):
 * ``polar``: the whole-volume round trip ``exp(log(|k| + 1e-10)) *
   (re/|k|, im/|k|)``, with ``(mag, 0)`` where ``|k| = 0``.
 
-On a CUDA tensor a wrapper launches its kernel (or raises) and adds one to
-``launches[name]``; on a CPU tensor it runs the plain PyTorch version
+Each wrapper is a thin call of a custom op (:mod:`._ops`), which
+``torch.export`` traces. On a CUDA tensor the op launches its kernel (or
+raises) and adds one to ``launches[name]``; on a CPU tensor it runs the
+plain PyTorch version
 (:func:`salt_and_pepper_plain`, :func:`polar_roundtrip_plain`), which
 repeats the kernel's arithmetic, Philox stream included, and counts
 nothing. Both kernels take float32 only.
@@ -149,15 +151,27 @@ def _launch(kernel: str, fn, *args, dev) -> None:
     launches[kernel] += 1
 
 
-def salt_and_pepper_pallas(x: torch.Tensor, p, seed: int) -> torch.Tensor:
+def salt_and_pepper_pallas(x: torch.Tensor, p, seed) -> torch.Tensor:
     """Salt & pepper with the uniform field made in the kernel (semantics of
     FO:465-482): pepper ``min(x)/2`` where ``u <= p/2``, salt ``max(x)/2``
     where ``p/2 < u <= p``, extrema over the whole tensor. ``seed`` is an
     int32 (its low 32 bits key the stream); vary it per call for fresh
-    noise. Counterpart of the JAX function of the same name."""
+    noise. ``p`` and ``seed`` may be numbers or 0-d tensors: as tensors they
+    stay inputs of an exported program, as JAX's traced seed does.
+    Counterpart of the JAX function of the same name; a thin call of the
+    custom op ``mvtb::sap`` (:mod:`._ops`)."""
     _check("sap", "x", x, x)
-    if _device_of("sap", x) == "cpu":
-        return salt_and_pepper_plain(x, p, seed)
+    _device_of("sap", x)
+    from mvtb_tpu_torch.ops import _ops
+
+    return _ops.sap(x, torch.as_tensor(p, dtype=torch.float32),
+                    torch.as_tensor(seed, dtype=torch.int64))
+
+
+def sap_launch(x: torch.Tensor, p: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """The sap kernel's launch on a CUDA tensor (the CUDA implementation of
+    ``mvtb::sap``); ``p`` and ``seed`` are read on the host (a 0-d tensor on
+    the card costs one synchronisation)."""
     if not x.is_contiguous():
         raise ValueError("sap: x must be contiguous")
     out = torch.empty_like(x)
@@ -173,11 +187,19 @@ def polar_roundtrip_pallas(re: torch.Tensor, im: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-volume polar decompose and recombine in one pass:
     ``exp(log(|k| + 1e-10)) * (re/|k|, im/|k|)``, ``(mag, 0)`` where
-    ``|k| = 0``. Counterpart of the JAX function of the same name."""
+    ``|k| = 0``. Counterpart of the JAX function of the same name; a thin
+    call of the custom op ``mvtb::polar`` (:mod:`._ops`)."""
     _check("polar", "re", re, re)
     _check("polar", "im", im, re)
-    if _device_of("polar", re) == "cpu":
-        return polar_roundtrip_plain(re, im)
+    _device_of("polar", re)
+    from mvtb_tpu_torch.ops import _ops
+
+    return _ops.polar(re, im)
+
+
+def polar_launch(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The polar kernel's launch on CUDA tensors (the CUDA implementation of
+    ``mvtb::polar``)."""
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("polar: re and im must be contiguous")
     ore, oim = torch.empty_like(re), torch.empty_like(im)

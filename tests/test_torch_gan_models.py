@@ -235,3 +235,31 @@ def test_shapes_at_registry_width():
     rg, rd = ResUnetGenerator(2, 2, device="cpu"), ResUnetDiscriminator(2, 2, device="cpu")
     x = torch.zeros(1, 2, 128, 128)
     assert rg(x).shape == x.shape and rd(x).shape == (1, 1, 1, 1)
+
+
+def test_zero_slice_with_zero_biases_follows_flax():
+    """The degenerate case of the Gibbs GAN: every bias 0 (flax's init) and
+    an all-zero slice beside a random one. Each instance norm after the
+    zero slice scales the gradient by rsqrt(eps), so the deep layers'
+    gradients overflow float32 in the JAX package too: the port's
+    non-finite leaves are exactly JAX's, and every leaf finite in JAX is
+    finite in the port, with the port's two-pass statistics as with flax's
+    one-pass ones. The finite values there are amplified rounding noise (up
+    to ~1e30) and are not compared."""
+    nf = 2
+    x = np.zeros((2, 128, 128, 1), np.float32)
+    x[1] = np.random.RandomState(0).randn(128, 128, 1)
+    jg = JRG(in_chans=1, nf=nf, global_residual=False)
+    params = flax_variables(jg, jnp.asarray(x), 1)["params"]
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: np.zeros_like(v) if p[-1].key == "bias" else v, params)
+    jgrads = jax.jit(jax.grad(lambda p: jnp.sum(jg.apply({"params": p}, jnp.asarray(x)))))(params)
+    want = resunet_gan_params_from_flax(jax.tree.map(np.asarray, jgrads))
+    g = ResUnetGenerator(1, nf, global_residual=False, device="cpu")
+    g.load_state_dict(resunet_gan_params_from_flax(jax.device_get(params)))
+    g(nchw(x)).sum().backward()
+    got = {n: p.grad for n, p in g.named_parameters()}
+    bad_jax = {n for n, v in want.items() if not bool(torch.isfinite(v).all())}
+    bad_port = {n for n, v in got.items() if not bool(torch.isfinite(v).all())}
+    assert bad_port == bad_jax
+    assert 0 < len(bad_jax) < len(want)

@@ -22,7 +22,8 @@ from mvtb_tpu_torch.train import (create_seg_state, seg_eval_step, seg_train_ste
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mvtb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                               ROOT / "plane_profile.py"]
+                                                               ROOT / "plane_profile.py",
+                                                               ROOT / "instance_norm_ab.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b"
     r"|^\s*(import|from)\s+mvtb_tpu(\.|\s|$)"
@@ -46,7 +47,13 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.data, mvtb_tpu_torch.native, mvtb_tpu_torch.models.layers, "
             "mvtb_tpu_torch.train.learnable, mvtb_tpu_torch.parallel, "
             "mvtb_tpu_torch.parallel.sharded_fft, mvtb_tpu_torch.parallel.spatial, "
-            "mvtb_tpu_torch.parallel.dp, mvtb_tpu_torch.parallel.collectives, chip_smoke\n"
+            "mvtb_tpu_torch.parallel.dp, mvtb_tpu_torch.parallel.collectives, "
+            "mvtb_tpu_torch.serve, mvtb_tpu_torch.ops._ops, mvtb_tpu_torch.utils, "
+            "mvtb_tpu_torch.utils.profiling, mvtb_tpu_torch.compat, "
+            "mvtb_tpu_torch.compat.filters_and_operators, "
+            "mvtb_tpu_torch.compat.stylization_layers, mvtb_tpu_torch.compat.utils, "
+            "mvtb_tpu_torch.compat.monai, mvtb_tpu_torch.compat.monai.networks.nets, "
+            "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -137,6 +144,59 @@ def test_entry_points_default_to_the_card(no_card):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert lstate.step == 0
+
+
+def test_serving_utils_and_compat_default_to_the_card(no_card, tmp_path):
+    """Loading a served program, seeding, and the monai shim's UNet take the
+    card unless told otherwise, and raise without one."""
+    from mvtb_tpu_torch import serve, utils
+    from mvtb_tpu_torch.compat.monai.networks.nets import UNet as ShimUNet
+    from mvtb_tpu_torch.compat.stylization_layers import Gibbs_UNet
+
+    x = torch.zeros(1, 1, 8, 8, 4)
+    model = UNet(1, 1, (2, 4), (2,), device="cpu")
+    blob = serve.export_fn(serve.module_fn(model), (dict(model.state_dict()), x))
+    serve.ServingBundle.save(str(tmp_path), serve.module_fn(model), model.state_dict(), (x,))
+    for make in (lambda: serve.ServingBundle.load(str(tmp_path)),
+                 lambda: serve.load_fn(blob), lambda: utils.set_determinism(0),
+                 lambda: utils.StepTimer(), lambda: ShimUNet(dimensions=3),
+                 lambda: Gibbs_UNet(0.5)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert serve.ServingBundle.load(str(tmp_path), device="cpu")(x).shape == x.shape
+
+
+@pytest.mark.parametrize("op", ["fused_plane", "axis_dft", "sap", "polar"])
+def test_custom_op_on_the_card_reaches_its_kernel_or_raises(op, monkeypatch, tmp_path):
+    """Each custom op's CUDA implementation is the kernel launch: dispatched
+    to the CUDA key here (no card, no compiler) it reaches the kernel's
+    library and raises; it never runs the plain version, and counts
+    nothing."""
+    from mvtb_tpu_torch.ops import _ops  # noqa: F401  (registers the ops)
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    for mod in (fused_plane, pallas_dft, pallas_kernels):
+        monkeypatch.setattr(mod, "_LIB", {})
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(f"mvtb::{op}", "CUDA")
+    cfg = fused.StylizeConfig(disk_r=3.0, fft_backend="plane")
+    draws = fused.sample_draws(cfg, (8, 6, 4), 2, 1, device="cpu")
+    flags, *params = fused_plane.plane_params(cfg, (8, 6, 4), draws, 2, 1, torch.device("cpu"))
+    k = torch.randn(2, 5, 6, 4)
+    mats = list(pallas_dft._dft.device_mats("gauss", 6, False, torch.device("cpu")))
+    args = {"fused_plane": (k, k, [8, 6, 4], list(flags), *params, False),
+            "axis_dft": ("c2c", False, [k.reshape(10, 6, 4)] * 2, mats, "high"),
+            "sap": (k, torch.tensor(0.1), torch.tensor(3)),
+            "polar": (k, k)}[op]
+    counts = (fused_plane.plane_stylize_half.launches, dict(pallas_dft.launches),
+              dict(pallas_kernels.launches))
+    overload = getattr(torch.ops.mvtb, op).default
+    with pytest.raises(RuntimeError, match="nvcc"):
+        overload.redispatch(torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), *args)
+    assert counts == (fused_plane.plane_stylize_half.launches, dict(pallas_dft.launches),
+                      dict(pallas_kernels.launches))
+    assert not (tmp_path / "build").exists()
 
 
 def test_process_group_entry_points_default_to_the_card(no_card, monkeypatch):
@@ -299,6 +359,14 @@ def test_chip_smoke_names_each_kernel_in_its_ptxas_lines():
 def test_plane_profile_fails_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, str(ROOT / "plane_profile.py")], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2
+    assert "no CUDA device" in res.stderr
+
+
+def test_instance_norm_ab_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "instance_norm_ab.py")], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 2
     assert "no CUDA device" in res.stderr

@@ -406,6 +406,55 @@ def spatial_world(rank, world, data):
 
 
 # --------------------------------------------------------------------------
+# sharded serving
+# --------------------------------------------------------------------------
+
+@job
+def serve_world(rank, world, data):
+    """Per-rank programs from ``export_sharded_fn``, reloaded and served:
+    the UNet over ``data``, a dense layer over ``data``, and the UNet split
+    over ``model``; each output gathered over the ranks."""
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.parallel import batch_sharding, make_mesh, replicate, shard_params_tp
+    from mvtb_tpu_torch.serve import export_sharded_fn, load_fn, module_fn
+
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    mesh = make_mesh(device="cpu")
+    rows = batch_sharding(mesh, 5)
+    model = UNet(4, 3, (4, 8), (2,), num_res_units=1, device="cpu")
+    model.load_state_dict({k: _t(v) for k, v in data["state"].items()})
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    served = load_fn(export_sharded_fn(module_fn(model), (params, _t(data["x"])), mesh=mesh,
+                                       in_shardings=(None, rows)), device="cpu")
+    local = rows.local(_t(data["x"]))
+    with torch.no_grad():
+        out = served(params, local)
+    res = {"unet": gathered(out), "unet_mesh": served.mesh_shape,
+           "unet_local_shape": tuple(out.shape)}
+
+    dense = {"kernel": _t(data["w"]), "bias": _t(data["b"])}
+    xrows = batch_sharding(mesh, 3)
+    served = load_fn(export_sharded_fn(lambda p, v: v @ p["kernel"] + p["bias"],
+                                       (dense, _t(data["xd"])), mesh=mesh,
+                                       in_shardings=(None, xrows)), device="cpu")
+    res["dense"] = gathered(served(dense, xrows.local(_t(data["xd"]))))
+
+    tp_mesh = make_mesh(n_data=1, n_model=world, device="cpu")
+    tp_model = shard_params_tp(tp_mesh, replicate(tp_mesh, model))
+    tp_params = {k: v.detach().clone() for k, v in tp_model.state_dict().items()}
+    served = load_fn(export_sharded_fn(module_fn(tp_model), (tp_params, _t(data["x"])),
+                                       mesh=tp_mesh, in_shardings=(None, None)), device="cpu")
+    with torch.no_grad():
+        res["tp"] = served(tp_params, _t(data["x"]))
+    res["tp_mesh"] = served.mesh_shape
+    return res
+
+
+# --------------------------------------------------------------------------
 # multi-process start-up
 # --------------------------------------------------------------------------
 
