@@ -208,7 +208,23 @@ order, each fatal on failure:
    same loop on the CPU (within 1e-4 of the max); the ``Gibbs_UNet``
    facade's finite-difference alpha update on the card (alpha moves and is
    not a parameter);
-16. timing with CUDA events: the plane kernel, its plain version and
+16. studies phase (the study scripts of ``mvtb_tpu_torch.examples`` through
+   their ``run`` functions): ``robustness_gain`` on ``FAST=1`` (disk
+   family, UNet 16..256 in bf16 at 4x128x128x64, batch 16, 2 chunks of 4
+   steps, pools of 16): the plane kernel launched exactly once per
+   stylized train step and by nothing else, no plain version on the card,
+   a finite Dice table, and over one chunk the host reads and the device's
+   idle share; ``FFT_BACKEND=dft_pallas`` for 2 steps (r2c, c2c, c2r 1, 4,
+   1 a step); its evaluation on the card against the CPU for the stylized
+   weights in float32 (per-class Dice within 1e-3); ``cross_corruption_
+   matrix`` on ``FAST=1`` for 2 steps a model with its learnable row (the
+   plane launches of every train and eval stylize the kernel takes, a
+   finite matrix); ``fullvol_probe`` at 240x240x160, B = 1 (ms a step by
+   CUDA events, peak GB, finite loss) and B = 2 (whether it fits); every
+   other script at its smallest useful size, ``full_scale_run`` stopped
+   after 2 epochs and resumed to 4; one line a script with its seconds and
+   output keys;
+17. timing with CUDA events: the plane kernel, its plain version and
    ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
    only) at the slice and bench shapes, with the bound at the bf16
    tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
@@ -1047,11 +1063,9 @@ def _zero_launch_counts():
 
 
 def _launch_counts() -> dict:
-    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels
+    from mvtb_tpu_torch.examples._common import kernel_launches
 
-    return {"fused_plane": fused_plane.plane_stylize_half.launches,
-            **{f"axis_dft_{k}": v for k, v in pallas_dft.launches.items()},
-            **pallas_kernels.launches}
+    return kernel_launches()
 
 
 def _runner_rates(res: dict, batch: int, steps: int) -> dict:
@@ -3405,21 +3419,301 @@ print(json.dumps({{"unet_params": n_params, "losses": losses, "step_ms": ms,
     return out
 
 
-def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv) -> list:
+# --------------------------------------------------------------------------
+# studies: the study scripts (mvtb_tpu_torch.examples) on the card
+# --------------------------------------------------------------------------
+
+# robustness_gain at full width (UNet 16..256, bf16, 4x128x128x64) on the
+# fast profile (batch 16, plane_fast), cut in depth only
+STUDY_SPATIAL = (128, 128, 64)
+STUDY_STEPS, STUDY_CHUNK, STUDY_POOL, STUDY_VAL = 8, 4, 16, 16
+# robustness_gain's evaluation, card against CPU on the same weights
+# (float32, TF32 off): per-class Dice, the hospital-Dice bound
+STUDY_DICE_TOL = 1e-3
+STUDY_CPU_VAL = 2
+# the smaller studies' pools (their host generation is the phase's cost)
+STUDY_SMALL_POOL = 4
+
+
+def _finite_table(table: dict) -> bool:
+    return all(math.isfinite(v) for row in table.values() for cell in row.values()
+               for v in [cell["mean"], *cell["per_class"]])
+
+
+def _study_line(name: str, t0: float, result: dict) -> dict:
+    """One printed line a study: its seconds and its output's keys."""
+    line = {"name": name, "seconds": time.perf_counter() - t0, "keys": sorted(result)}
+    out({"study": line})
+    return line
+
+
+def studies_phase(dev) -> dict:
+    """The study scripts of ``mvtb_tpu_torch.examples`` through their
+    ``run`` entry points, outputs under a temporary directory:
+    (a) ``robustness_gain`` on ``FAST=1`` (disk family, full width, 2 chunks
+    of 4 steps, pools of 16): the plane kernel launched exactly once per
+    stylized train step and by nothing else, never its plain version on the
+    card, a finite Dice table; one chunk of that training probed for host
+    reads and the device's idle share; (b) the same with
+    ``FFT_BACKEND=dft_pallas`` for 2 steps: r2c/c2c/c2r 1/4/1 a step;
+    (c) its evaluation on the card against the CPU for (a)'s stylized
+    weights in float32 (clean, one disk radius, one wrap alpha): per-class
+    Dice within 1e-3; (d) ``cross_corruption_matrix`` on ``FAST=1``, 2
+    steps a model with the learnable row: the plane launches of its train
+    and eval stylizes, a finite matrix; (e) ``fullvol_probe`` at
+    240x240x160, B = 1 then B = 2: ms a step (CUDA events), peak GB,
+    finite loss; (f) every other script at its smallest useful size,
+    ``full_scale_run`` with its stop-and-resume drill."""
+    import dataclasses
+    import tempfile
+
+    from mvtb_tpu_torch.examples import (brats_rehearsal, cross_corruption_matrix,
+                                         dcgan_fid_report, evaluation_sweep,
+                                         fourier_disk_masks, full_scale_run, fullvol_probe,
+                                         holdout_hospital, learnable_trajectory,
+                                         recon_gan_recovery, robustness_gain, rotate_gradient,
+                                         spikes_fd_vs_grad, stylized_gibbs12p5)
+    from mvtb_tpu_torch.examples import _common
+    from mvtb_tpu_torch.experiments import registry
+    from mvtb_tpu_torch.ops import fused_plane
+    from mvtb_tpu_torch.ops.fused import StylizeConfig
+    from mvtb_tpu_torch.train import make_chunk_fn
+
+    res, lines = {}, []
+    quiet = lambda *_: None  # noqa: E731
+    plain = fused_plane.plane_stylize_half_plain
+    plain_on_card = []
+
+    def watched_plain(k_re, *a, **kw):
+        if k_re.is_cuda:
+            plain_on_card.append(tuple(k_re.shape))
+        return plain(k_re, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_plane.plane_stylize_half_plain = watched_plain
+        try:
+            # (a) robustness_gain, FAST=1, disk family
+            t0 = time.perf_counter()
+            _zero_launch_counts()
+            rg = robustness_gain.run(spatial=STUDY_SPATIAL, steps=STUDY_STEPS,
+                                     chunk=STUDY_CHUNK, pool=STUDY_POOL, val_pool=STUDY_VAL,
+                                     fast=True, outdir=f"{tmp}/rg_fast", device=dev, log=quiet)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            check(launches["fused_plane"] == STUDY_STEPS,
+                  f"robustness_gain FAST=1: {launches}, expected {STUDY_STEPS} plane launches "
+                  "(one per stylized train step)")
+            check(sum(launches.values()) == STUDY_STEPS, f"other kernels launched: {launches}")
+            check(_finite_table(rg["table"]), f"robustness_gain table {rg['table']}")
+            check(rg["batch"] == 16 and rg["fft_backend"] == "plane_fast",
+                  f"FAST=1 profile: batch {rg['batch']}, {rg['fft_backend']}")
+            res["robustness_fast"] = {
+                "launches": launches, "table": rg["table"], "effect": rg["effect"],
+                "timing": rg["timing"], "seconds": time.perf_counter() - t0}
+            lines.append(_study_line("robustness_gain FAST=1", t0, rg))
+
+            # one chunk of the stylized model's training: host reads, idle share
+            styl = rg["models"]["gibbs12.5"]
+            state = _common.seg_state(4, 3, 0, dev)
+            state.model.load_state_dict(styl.state_dict())
+            pool_i, pool_l = _common.on(dev, *robustness_gain.make_pool(0, STUDY_POOL,
+                                                                         STUDY_SPATIAL))
+            cfg = StylizeConfig(disk_r=12.5, disk_prob=1.0, fft_backend="plane_fast")
+            chunk_fn = make_chunk_fn(cfg, dev)
+            idxs = torch.randint(0, STUDY_POOL, (STUDY_CHUNK, 16), device=dev)
+
+            def one_chunk(epoch):
+                g = torch.Generator(device=dev).manual_seed(epoch)
+                return chunk_fn(state, g, pool_i, pool_l, idxs)[2]
+
+            res["robustness_fast"]["chunk_probe"] = chunk_probe("robustness_gain fast", one_chunk,
+                                                                STUDY_CHUNK)
+            del state, pool_i, pool_l, chunk_fn
+
+            # (b) FFT_BACKEND=dft_pallas for 2 steps
+            t0 = time.perf_counter()
+            _zero_launch_counts()
+            rp = robustness_gain.run(spatial=STUDY_SPATIAL, steps=2, chunk=2,
+                                     pool=STUDY_SMALL_POOL, val_pool=STUDY_SMALL_POOL,
+                                     fft_backend="dft_pallas", outdir=f"{tmp}/rg_pallas",
+                                     device=dev, log=quiet)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            want = {f"axis_dft_{b}": n * 2 for b, n in LAUNCHES_PER_STEP.items()}
+            check({k: launches[k] for k in want} == want and launches["fused_plane"] == 0,
+                  f"robustness_gain dft_pallas: {launches}, expected {want}")
+            check(_finite_table(rp["table"]), f"robustness_gain dft_pallas table {rp['table']}")
+            res["robustness_dft_pallas"] = {"launches": launches,
+                                            "seconds": time.perf_counter() - t0}
+            lines.append(_study_line("robustness_gain FFT_BACKEND=dft_pallas", t0, rp))
+            del rp
+
+            # (c) the evaluation, card against CPU, same float32 weights
+            t0 = time.perf_counter()
+            cpu = torch.device("cpu")
+            va_i, va_l = robustness_gain.make_pool(9999, STUDY_CPU_VAL, STUDY_SPATIAL)
+            sets = {"clean": None, "gibbs12.5": 12.5, "wrap0.5": ("wrap", 0.5)}
+            tables = {}
+            for tag, d in (("card", dev), ("cpu", cpu)):
+                st = _common.seg_state(4, 3, 0, d, "float32")
+                st.model.load_state_dict({k: v.to(d) for k, v in styl.state_dict().items()})
+                vi, vl = _common.on(d, va_i, va_l)
+                tables[tag] = {k: robustness_gain.evaluate(st.model, vi, vl, c, STUDY_CPU_VAL,
+                                                           0, d) for k, c in sets.items()}
+                del st
+            diff = max(abs(a - b) for k in sets for a, b in zip(
+                tables["card"][k]["per_class"], tables["cpu"][k]["per_class"]))
+            check(diff <= STUDY_DICE_TOL, f"robustness_gain eval card vs CPU: {diff:.3e}")
+            res["robustness_card_vs_cpu"] = {"max_per_class_dice_diff": diff,
+                                             "card": tables["card"],
+                                             "seconds": time.perf_counter() - t0}
+            del rg, styl
+
+            # (d) cross_corruption_matrix, FAST=1, 2 steps a model
+            t0 = time.perf_counter()
+            _zero_launch_counts()
+            cm = cross_corruption_matrix.run(spatial=STUDY_SPATIAL, steps=2, chunk=2,
+                                             pool=STUDY_SMALL_POOL,
+                                             val_pool=STUDY_SMALL_POOL, fast=True,
+                                             outdir=f"{tmp}/cm", device=dev, log=quiet)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            train_grid, eval_grid = cross_corruption_matrix.grids(True)
+            on_plane = [c is not None and fused_plane.plane_kernel_eligible(c, STUDY_SPATIAL)
+                        for c in (*train_grid.values(), *eval_grid.values())]
+            n_train = sum(on_plane[:len(train_grid)])
+            n_eval = sum(on_plane[len(train_grid):])
+            want = n_train * 2 + n_eval * len(cm["table"]) * math.ceil(STUDY_SMALL_POOL / 16)
+            check(launches["fused_plane"] == want and sum(launches.values()) == want,
+                  f"cross_corruption_matrix FAST=1: {launches}, expected {want} plane launches")
+            check(_finite_table(cm["table"]) and "learnable_gd" in cm["table"],
+                  f"cross_corruption_matrix table {cm['table']}")
+            res["cross_corruption_fast"] = {"launches": launches,
+                                            "train_stylizes_on_plane": n_train,
+                                            "eval_sets_on_plane": n_eval,
+                                            "seconds": time.perf_counter() - t0}
+            lines.append(_study_line("cross_corruption_matrix FAST=1", t0, cm))
+            del cm
+        finally:
+            fused_plane.plane_stylize_half_plain = plain
+        check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
+
+        # (e) the full-volume probe at B = 1 and B = 2
+        res["fullvol"] = {}
+        for b in (1, 2):
+            t0 = time.perf_counter()
+            fv = fullvol_probe.run(batch=b, outdir=f"{tmp}/fv{b}", device=dev, timed=5,
+                                   log=quiet)
+            att = fv["attempts"][0]
+            if b == 1:
+                check(att["ok"] and math.isfinite(att["loss"]),
+                      f"full-volume step at B = 1: {att}")
+            res["fullvol"][f"b{b}"] = {**att, "seconds": time.perf_counter() - t0,
+                                       "fits": att["ok"]}
+            lines.append(_study_line(f"fullvol_probe B={b}", t0, fv))
+            torch.cuda.empty_cache()
+
+        # (f) every other script at its smallest useful size
+        small = (64, 64, 32)
+        t0 = time.perf_counter()
+        hh = holdout_hospital.run(spatial=small, steps=2, chunk=2, n_per_hospital=4,
+                                  outdir=f"{tmp}/hh", device=dev, log=quiet)
+        check(all(math.isfinite(r["gap"]["gap"]) for r in hh["results"].values()),
+              f"holdout_hospital gaps {hh['effect']}")
+        lines.append(_study_line("holdout_hospital", t0, hh))
+
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(registry.get("gibbs12p5"), spatial=small)
+        drill = dict(steps_per_epoch=2, pool=STUDY_SMALL_POOL, val_batches=1,
+                     out_dir=f"{tmp}/fs", device=dev, verbose=False)
+        full_scale_run.run(cfg, epochs=2, **drill)
+        summary = full_scale_run.run(cfg, epochs=4, resume=True, **drill)
+        with open(f"{tmp}/fs/history.json") as f:
+            hist = json.load(f)
+        check([e["kind"] for e in summary["events"]] == ["start", "resume"]
+              and summary["events"][1]["from_epoch"] == 2 and len(hist["loss"]) == 4
+              and all(math.isfinite(v) for v in hist["loss"]),
+              f"full_scale_run resume drill: {summary['events']}, losses {hist['loss']}")
+        res["full_scale_resume"] = {"events": summary["events"], "losses": hist["loss"]}
+        lines.append(_study_line("full_scale_run + --resume", t0, summary))
+
+        t0 = time.perf_counter()
+        br = brats_rehearsal.run(f"{tmp}/brdata", out_dir=f"{tmp}/br", steps=4, chunk=2,
+                                 roi=(32, 32, 32), raw_size=(48, 48, 40), n_volumes=10,
+                                 gibbs_radii=(6.0, 4.0), device=dev, log=quiet)
+        check(math.isfinite(br["final_loss"]) and len(br["eval"]) == 3,
+              f"brats_rehearsal {br}")
+        lines.append(_study_line("brats_rehearsal", t0, br))
+
+        t0 = time.perf_counter()
+        es = evaluation_sweep.run(epochs=1, steps_per_epoch=2, workdir=f"{tmp}/es",
+                                  device=dev, verbose=False)
+        lines.append(_study_line("evaluation_sweep", t0, es))
+
+        t0 = time.perf_counter()
+        sg = stylized_gibbs12p5.run(max_epochs=2, steps_per_epoch=2, workdir=f"{tmp}/sg",
+                                    device=dev, log=quiet)
+        check(math.isfinite(sg["best_metric"]), f"stylized_gibbs12p5 {sg}")
+        lines.append(_study_line("stylized_gibbs12p5", t0, sg))
+
+        t0 = time.perf_counter()
+        rr = recon_gan_recovery.run(steps=2, batch=4, chunk=1, pool=8, val_batch=4,
+                                    outdir=f"{tmp}/rr", device=dev, log=quiet)
+        check(all(math.isfinite(r["psnr_recovered"]) for r in rr.values()),
+              f"recon_gan_recovery {rr}")
+        lines.append(_study_line("recon_gan_recovery", t0, rr))
+
+        t0 = time.perf_counter()
+        dc = dcgan_fid_report.run(rounds=1, steps=2, outdir=f"{tmp}/dc", device=dev, log=quiet)
+        check(math.isfinite(dc["curve"][-1]["fid"]), f"dcgan_fid_report {dc}")
+        lines.append(_study_line("dcgan_fid_report", t0, dc))
+
+        t0 = time.perf_counter()
+        lt = learnable_trajectory.run(steps=2, batch=2, outdir=f"{tmp}/lt", device=dev,
+                                      log=quiet)
+        check(all(abs(r["trajectory"][-1] - 0.7) > 1e-6 for r in lt.values()),
+              f"learnable_trajectory: alpha did not move: {lt}")
+        lines.append(_study_line("learnable_trajectory", t0, lt))
+
+        t0 = time.perf_counter()
+        sp = spikes_fd_vs_grad.run(epochs=1, steps=2, pool=STUDY_SMALL_POOL,
+                                   outdir=f"{tmp}/sp", device=dev, log=quiet)
+        lines.append(_study_line("spikes_fd_vs_grad", t0, sp))
+
+        t0 = time.perf_counter()
+        fm = fourier_disk_masks.run(outdir=f"{tmp}/fm", device=dev, log=quiet)
+        check(all(bool(torch.isfinite(torch.as_tensor(a)).all()) for _, a in fm["panels"]),
+              "fourier_disk_masks panels")
+        lines.append(_study_line("fourier_disk_masks", t0, fm))
+
+        t0 = time.perf_counter()
+        ro = rotate_gradient.run(device=dev, log=quiet)
+        check(abs(ro["final_theta"] - math.pi / 2) < 0.1, f"rotate_gradient {ro['final_theta']}")
+        lines.append(_study_line("rotate_gradient", t0, ro))
+    res["studies"] = lines
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv, st) -> list:
     """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
     path, the runner's fast profile, the domain runs' and the served eval
     program's (timed at the eval slice), each axis kernel from the train
     path, the fused-rest paths, the domain run on ``dft_pallas``, the
     data-parallel step and the served stylize (timed at the train shape),
     the pointwise kernels from the corruption path and the served S&P +
-    polar program."""
+    polar program; the plane and axis kernels also count the study
+    study scripts' launches."""
     main_t = tm["plane slice"]
     domain = dm["runs"]
     served = sv["eval_program"]["launches"]
     by_path = {"eval_slice": sl["launches"],
                "runner_fast": rn["fast"]["launches"]["fused_plane"],
                "domain_plane_fast": domain["plane_fast"]["launches"]["fused_plane"],
-               "served_eval": sum(served.values())}
+               "served_eval": sum(served.values()),
+               "studies_robustness_fast": st["robustness_fast"]["launches"]["fused_plane"],
+               "studies_cross_corruption_fast":
+                   st["cross_corruption_fast"]["launches"]["fused_plane"]}
     kernels = [{
         "name": "fused_plane", "route": "cuda",
         "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
@@ -3441,14 +3735,17 @@ def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv) -> list:
         on_domain = domain["dft_pallas"]["launches"][f"axis_dft_{body}"]
         on_dp = pl["dp_world1"]["launches"][f"axis_dft_{body}"]
         on_served = sv["stylize_program"]["launches"][f"axis_dft_{body}"]
+        on_studies = st["robustness_dft_pallas"]["launches"][f"axis_dft_{body}"]
         kernels.append({
             "name": f"axis_dft_{body}", "route": "cuda",
             "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
             "replaces": AXIS_REPLACES[body],
-            "launches": tr["launches"][body] + rest[body] + on_domain + on_dp + on_served,
+            "launches": (tr["launches"][body] + rest[body] + on_domain + on_dp + on_served
+                         + on_studies),
             "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body],
                                  "domain_dft_pallas": on_domain, "parallel_dp": on_dp,
-                                 "served_stylize": on_served},
+                                 "served_stylize": on_served,
+                                 "studies_robustness_dft_pallas": on_studies},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
@@ -3558,6 +3855,10 @@ def main() -> int:
     cm = compat_phase(dev)
     cm["seconds"] = time.perf_counter() - t0
     out({"compat_phase": cm, "card": smi})
+    t0 = time.perf_counter()
+    st = studies_phase(dev)
+    st["seconds"] = time.perf_counter() - t0
+    out({"studies_phase": st, "card": smi})
 
     t0 = time.perf_counter()
     tm = timing_phase(dev)
@@ -3569,7 +3870,7 @@ def main() -> int:
     pt = pointwise_timing(dev)
     out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
 
-    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv)
+    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv, st)
     out(smi_line())
     out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",

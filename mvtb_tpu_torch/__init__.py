@@ -30,8 +30,10 @@ steps, the H-split k-space stylization and the H-split UNet step with
 halo exchanges), serving (``serve``: ``torch.export`` programs and weight
 bundles, every hand-written kernel a custom op of ``ops._ops``), the
 reference-script shims (``compat``: ``filters_and_operators``,
-``stylization_layers``, ``utils`` and ``monai``) and ``utils`` (profiler
-traces, step timing, determinism). Every module of the JAX package has a
+``stylization_layers``, ``utils`` and ``monai``), ``utils`` (profiler
+traces, step timing, determinism) and the study scripts (``examples``: the
+JAX package's ``examples/`` scripts, ``python -m
+mvtb_tpu_torch.examples.<name>``). Every module of the JAX package has a
 counterpart here; ``utils.enable_compilation_cache`` (XLA's cache) and the
 JAX shim's numpy ``ArrayTensor`` have none.
 """

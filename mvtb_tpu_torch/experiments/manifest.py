@@ -255,11 +255,9 @@ LIBRARY_MAP = {
     "10_scripts/300_instutional_distribution/350_stylized_layers/"
     "351_adversarial_gibbs/tcga_data.py": "mvtb_tpu_torch.data.tcga",
     # 2x2 rotation-matrix gradient toy exploring grads through a geometric
-    # parameter; what it led to is the soft Gibbs mask of the learnable
-    # layers (the JAX package's value is its example, and examples are not
-    # ported)
+    # parameter (the port of the JAX package's example, as its value names)
     "10_scripts/300_instutional_distribution/350_stylized_layers/rotate.py":
-        "mvtb_tpu_torch.models.layers",
+        "mvtb_tpu_torch.examples.rotate_gradient",
     "50_reconstruction/__init__.py": "mvtb_tpu_torch",
     "50_reconstruction/data/__init__.py": "mvtb_tpu_torch.data",
     "50_reconstruction/dcgan/__init__.py": "mvtb_tpu_torch.models.dcgan",

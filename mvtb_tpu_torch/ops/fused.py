@@ -104,6 +104,23 @@ def _off_of(i: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(i < n - c, i, i - n)
 
 
+def _raw_dist_sq(spatial, center_shift: Tuple[float, ...], grid=None,
+                 device: DeviceLike = None) -> torch.Tensor:
+    """Float32 squared distance of every raw (unshifted) FFT index from the
+    shifted-space center plus the per-axis ``center_shift``, on ``grid``
+    (default ``spatial``; the rfft half-spectrum shape gives the weight on
+    half-k). The same sums in the same order as the JAX package's."""
+    grid = tuple(spatial) if grid is None else tuple(grid)
+    total = torch.zeros(grid, dtype=torch.float32, device=device)
+    for axis in range(len(grid)):
+        view = [1] * len(grid)
+        view[axis] = grid[axis]
+        i = torch.arange(grid[axis], dtype=torch.float32, device=device).view(view)
+        off = _off_of(i, spatial[axis]) - center_shift[axis]
+        total = total + off * off
+    return total
+
+
 def _to_raw_index(shifted_idx, n: int):
     """Map a shifted-space index to raw FFT coordinates: ``(s - c) mod n``."""
     return (shifted_idx - n // 2) % n

@@ -42,9 +42,9 @@ def test_library_values_import_or_name_a_roadmap_item(script):
     importlib.import_module(value)
     jvalue = jmanifest.LIBRARY_MAP[script]
     if jvalue.startswith("examples/"):
-        # examples are not ported: the port names the module the example
-        # led to (the rotate toy: the learnable layers' soft Gibbs mask)
-        assert (script, value) == (ROTATE, "mvtb_tpu_torch.models.layers")
+        # a JAX example: the port's study script of the same file name
+        assert value == "mvtb_tpu_torch.examples." + Path(jvalue).stem
+        assert script == ROTATE
         return
     # the counterpart of the JAX package's module of the same path
     assert value.replace("mvtb_tpu_torch", "mvtb_tpu", 1) == jvalue

@@ -53,7 +53,10 @@ def test_import_leaves_jax_out():
             "mvtb_tpu_torch.compat.filters_and_operators, "
             "mvtb_tpu_torch.compat.stylization_layers, mvtb_tpu_torch.compat.utils, "
             "mvtb_tpu_torch.compat.monai, mvtb_tpu_torch.compat.monai.networks.nets, "
-            "chip_smoke\n"
+            "mvtb_tpu_torch.examples, mvtb_tpu_torch.examples._common, "
+            + "".join(f"mvtb_tpu_torch.examples.{p.stem}, " for p in sorted(
+                (ROOT / "mvtb_tpu_torch" / "examples").glob("[!_]*.py")))
+            + "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'mvtb_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
