@@ -31,6 +31,7 @@ from mvtb_tpu_torch.data.preprocess import (
 )
 from mvtb_tpu_torch.transforms import Compose, ConvertToMultiChannelBasedOnBratsClassesd
 from mvtb_tpu_torch.transforms.array import _to_numpy
+from mvtb_tpu_torch.utils.profiling import span, to_host
 
 
 def brats_train_pipeline(roi_size: Sequence[int] = (128, 128, 64),
@@ -100,7 +101,9 @@ class StylizedLoader:
         for batch in self.loader:
             img = stylize_batch(torch.from_numpy(np.asarray(batch["image"])),
                                 self.stylize, generator=generator, device=self.device)
-            yield {**batch, "image": img.cpu().numpy()}
+            with span("mvtb.loader.to_host"):
+                img = to_host(img).numpy()
+            yield {**batch, "image": img}
 
 
 class Loader:

@@ -28,6 +28,9 @@ from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.eval.dice import dice_metric, threshold_predictions
 from mvtb_tpu_torch.eval.sliding_window import sliding_window_inference
 from mvtb_tpu_torch.transforms.array import _to_numpy
+from mvtb_tpu_torch.utils.profiling import count, span, to_device
+
+_END = object()  # what ``next`` returns on an exhausted loader
 
 
 class _SeededDraws(torch.nn.Module):
@@ -70,21 +73,26 @@ class ModelEvaluation:
         self.eval_dict: Dict[str, object] = defaultdict(list)
 
     @torch.no_grad()
-    def _eval_batch(self, batch: dict):
-        """``((mean, not_nans), [(mean, not_nans) per channel])`` of one
-        channel-first batch, as 0-d tensors on the card."""
-        image = torch.as_tensor(_to_numpy(batch["image"])).to(self.device)
-        label = torch.as_tensor(_to_numpy(batch["label"])).to(self.device)
+    def _eval_batch(self, batch: dict, per_class: bool = True) -> List[Tuple[float, float]]:
+        """``[(mean, not_nans)]`` of one channel-first batch, read on the
+        host: the Dice over all channels, then, with ``per_class``, each
+        channel's."""
+        with span("mvtb.eval.to_device"):
+            image = to_device(torch.as_tensor(_to_numpy(batch["image"])), self.device)
+            label = to_device(torch.as_tensor(_to_numpy(batch["label"])), self.device)
+        count("eval.volumes", image.shape[0])
         if self.roi_size is not None:
             logits = sliding_window_inference(image, self.roi_size, self.model,
                                               device=self.device)
         else:
             logits = self.model(image)
-        preds = threshold_predictions(logits)
-        overall = dice_metric(preds, label)
-        per_class = [dice_metric(preds[:, c:c + 1], label[:, c:c + 1])
-                     for c in range(label.shape[1])]
-        return overall, per_class
+        with span("mvtb.eval.dice"):
+            preds = threshold_predictions(logits)
+            scores = [dice_metric(preds, label)]
+            if per_class:
+                scores += [dice_metric(preds[:, c:c + 1], label[:, c:c + 1])
+                           for c in range(label.shape[1])]
+            return [(float(v), float(n)) for v, n in scores]
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, instance_name: Optional[str] = None,
@@ -128,23 +136,31 @@ class ModelEvaluation:
     def dataset_eval_single(self, loader: Iterable[dict]) -> float:
         """The not-NaN-weighted mean Dice over the loader's batches."""
         metric_sum, metric_count = 0.0, 0.0
-        for batch in loader:
-            (value, not_nans), _ = self._eval_batch(batch)
-            metric_sum += float(value) * float(not_nans)
-            metric_count += float(not_nans)
+        batches = iter(loader)
+        while True:
+            with span("mvtb.eval.volume"):  # one batch: the loader's next() to its Dice
+                batch = next(batches, _END)
+                if batch is _END:
+                    break
+                [(value, not_nans)] = self._eval_batch(batch, per_class=False)
+                metric_sum += value * not_nans
+                metric_count += not_nans
         return metric_sum / metric_count
 
     def dataset_eval_multi(self, loader: Iterable[dict]) -> Tuple[float, float, float, float]:
         """``(mean, ET, TC, WT)``, each not-NaN-weighted over the batches."""
         sums = np.zeros(4)
         counts = np.zeros(4)
-        for batch in loader:
-            (value, not_nans), per_class = self._eval_batch(batch)
-            sums[0] += float(value) * float(not_nans)
-            counts[0] += float(not_nans)
-            for i, (v, n) in enumerate(per_class):  # channels: TC, WT, ET
-                sums[1 + i] += float(v) * float(n)
-                counts[1 + i] += float(n)
+        batches = iter(loader)
+        while True:
+            with span("mvtb.eval.volume"):  # one batch: the loader's next() to its Dice
+                batch = next(batches, _END)
+                if batch is _END:
+                    break
+                # the mean, then the channels TC, WT, ET
+                for i, (v, n) in enumerate(self._eval_batch(batch)):
+                    sums[i] += v * n
+                    counts[i] += n
         metric, metric_tc, metric_wt, metric_et = (float(v) for v in sums / counts)
         # reference return order: (mean, ET, TC, WT) (utils.py:415)
         return metric, metric_et, metric_tc, metric_wt

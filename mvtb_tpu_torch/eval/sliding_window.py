@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
+from mvtb_tpu_torch.utils.profiling import count, span, to_device
 
 
 def _grid_positions(size: int, roi: int, overlap: float) -> Tuple[int, ...]:
@@ -100,59 +101,68 @@ def sliding_window_inference(
     except TypeError:
         raise TypeError("tile_batch must be a Python int") from None
     dev = resolve_device(device)
-    image = torch.as_tensor(image).to(dev)
-    nd = len(roi_size)
-    roi = tuple(int(r) for r in roi_size)
-    spatial = tuple(image.shape[2:])
-    if len(spatial) != nd:
-        raise ValueError(f"roi rank {nd} != spatial rank {len(spatial)}")
+    with span("mvtb.sw"):
+        image = to_device(torch.as_tensor(image), dev)
+        nd = len(roi_size)
+        roi = tuple(int(r) for r in roi_size)
+        spatial = tuple(image.shape[2:])
+        if len(spatial) != nd:
+            raise ValueError(f"roi rank {nd} != spatial rank {len(spatial)}")
 
-    # pad up to roi when the volume is smaller (F.pad lists the last axis first)
-    pads = [max(r - s, 0) for r, s in zip(roi, spatial)]
-    if any(pads):
-        image = F.pad(image, [p for pad in reversed(pads) for p in (0, pad)])
-    padded = tuple(image.shape[2:])
+        # pad up to roi when the volume is smaller (F.pad lists the last axis first)
+        pads = [max(r - s, 0) for r, s in zip(roi, spatial)]
+        if any(pads):
+            image = F.pad(image, [p for pad in reversed(pads) for p in (0, pad)])
+        padded = tuple(image.shape[2:])
 
-    grids = [_grid_positions(padded[d], roi[d], overlap) for d in range(nd)]
-    positions = [()]
-    for axis_starts in grids:
-        positions = [p + (s,) for p in positions for s in axis_starts]
-    T = len(positions)
+        with span("mvtb.sw.grid"):
+            grids = [_grid_positions(padded[d], roi[d], overlap) for d in range(nd)]
+            positions = [()]
+            for axis_starts in grids:
+                positions = [p + (s,) for p in positions for s in axis_starts]
+            T = len(positions)
 
-    importance_np = (_gaussian_importance(roi) if mode == "gaussian"
-                     else np.ones(roi, np.float32))
-    # the blend normalizer depends only on the grid: built on the host
-    norm_np = np.zeros(padded, np.float32)
-    for pos in positions:
-        norm_np[tuple(slice(s, s + r) for s, r in zip(pos, roi))] += importance_np
-    importance = torch.from_numpy(importance_np).to(dev)
-    norm = torch.from_numpy(norm_np).to(dev)
+            importance_np = (_gaussian_importance(roi) if mode == "gaussian"
+                             else np.ones(roi, np.float32))
+            # the blend normalizer depends only on the grid: built on the host
+            norm_np = np.zeros(padded, np.float32)
+            for pos in positions:
+                norm_np[tuple(slice(s, s + r) for s, r in zip(pos, roi))] += importance_np
+            importance = to_device(torch.from_numpy(importance_np), dev)
+            norm = to_device(torch.from_numpy(norm_np), dev)
 
-    B, C = image.shape[:2]
-    total = T * B
-    chunk, n_chunks = _chunking(total, tile_batch)
+        B, C = image.shape[:2]
+        total = T * B
+        chunk, n_chunks = _chunking(total, tile_batch)
+        count("sw.tiles", total)
+        count("sw.tile_slots", n_chunks * chunk)
 
-    def tile(k):
-        t, b = divmod(k, B)
-        sl = tuple(slice(s, s + r) for s, r in zip(positions[t], roi))
-        return image[(b, slice(None)) + sl]
-
-    out = None
-    for c in range(n_chunks):
-        ks = range(c * chunk, min((c + 1) * chunk, total))
-        tiles = torch.stack([tile(k) for k in ks])
-        if len(ks) < chunk:  # the padded last chunk: zero tiles, dropped below
-            tiles = torch.cat([tiles, tiles.new_zeros((chunk - len(ks),) + tiles.shape[1:])])
-        logits = model(tiles).float()
-        if out is None:
-            oc = logits.shape[1] if out_channels is None else out_channels
-            out = torch.zeros((B, oc) + padded, dtype=torch.float32, device=dev)
-        for j, k in enumerate(ks):
+        def tile(k):
             t, b = divmod(k, B)
-            sl = (b, slice(None)) + tuple(slice(s, s + r) for s, r in zip(positions[t], roi))
-            out[sl] += logits[j] * importance
-    out = out / norm
-    return out[(slice(None), slice(None)) + tuple(slice(0, s) for s in spatial)]
+            sl = tuple(slice(s, s + r) for s, r in zip(positions[t], roi))
+            return image[(b, slice(None)) + sl]
+
+        out = None
+        for c in range(n_chunks):
+            ks = range(c * chunk, min((c + 1) * chunk, total))
+            with span("mvtb.sw.forward"):
+                tiles = torch.stack([tile(k) for k in ks])
+                if len(ks) < chunk:  # the padded last chunk: zero tiles, dropped below
+                    zeros = tiles.new_zeros((chunk - len(ks),) + tiles.shape[1:])
+                    tiles = torch.cat([tiles, zeros])
+                logits = model(tiles).float()
+            with span("mvtb.sw.blend"):
+                if out is None:
+                    oc = logits.shape[1] if out_channels is None else out_channels
+                    out = torch.zeros((B, oc) + padded, dtype=torch.float32, device=dev)
+                for j, k in enumerate(ks):
+                    t, b = divmod(k, B)
+                    sl = (b, slice(None)) + tuple(slice(s, s + r)
+                                                  for s, r in zip(positions[t], roi))
+                    out[sl] += logits[j] * importance
+        with span("mvtb.sw.blend"):
+            out = out / norm
+            return out[(slice(None), slice(None)) + tuple(slice(0, s) for s in spatial)]
 
 
 def make_sliding_window_fn(roi_size: Sequence[int], model: torch.nn.Module,

@@ -44,6 +44,7 @@ from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.ops import dft as _dft
 from mvtb_tpu_torch.ops.corruptions import sap_select
 from mvtb_tpu_torch.ops.masks import shell_flat_indices
+from mvtb_tpu_torch.utils.profiling import span, to_device
 
 ParamSpec = Union[float, Tuple[float, float]]  # fixed value or U[lo,hi] range
 
@@ -646,27 +647,28 @@ def stylize_batch(x: torch.Tensor, cfg: StylizeConfig,
     :func:`sample_draws` from ``generator``. ``device=None`` means
     ``"cuda"``; ``x`` and ``draws`` are moved there.
     """
-    dev = resolve_device(device)
-    nd = cfg.n_dims
-    x = x.to(dev)
-    if x.ndim != nd + 2:
-        raise ValueError(
-            f"expected (B, C, *spatial) with {nd} spatial dims, got {tuple(x.shape)}")
-    if not cfg.any_enabled:
-        return x
-    spatial = tuple(x.shape[2:])
-    backend = _resolve_backend(cfg.fft_backend, spatial, dev)
-    if draws is None:
-        draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
-                             generator=generator, device=dev)
-    draws = draws.to(dev)
-    if backend in ("plane", "plane_fast"):
-        from mvtb_tpu_torch.ops import fused_plane
+    with span("mvtb.stylize_batch"):
+        dev = resolve_device(device)
+        nd = cfg.n_dims
+        x = to_device(x, dev)
+        if x.ndim != nd + 2:
+            raise ValueError(
+                f"expected (B, C, *spatial) with {nd} spatial dims, got {tuple(x.shape)}")
+        if not cfg.any_enabled:
+            return x
+        spatial = tuple(x.shape[2:])
+        backend = _resolve_backend(cfg.fft_backend, spatial, dev)
+        if draws is None:
+            draws = sample_draws(cfg, spatial, x.shape[0], x.shape[1],
+                                 generator=generator, device=dev)
+        draws = draws.to(dev)
+        if backend in ("plane", "plane_fast"):
+            from mvtb_tpu_torch.ops import fused_plane
 
-        if fused_plane.plane_kernel_eligible(cfg, spatial):
-            return fused_plane.stylize_kspace_plane(x, cfg, draws)
-        backend = "dft_fast" if backend == "plane_fast" else "dft"
-    return _stylize_general(x, cfg, draws, backend)
+            if fused_plane.plane_kernel_eligible(cfg, spatial):
+                return fused_plane.stylize_kspace_plane(x, cfg, draws)
+            backend = "dft_fast" if backend == "plane_fast" else "dft"
+        return _stylize_general(x, cfg, draws, backend)
 
 
 def stylize_kspace(x: torch.Tensor, cfg: StylizeConfig,

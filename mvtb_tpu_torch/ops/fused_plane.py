@@ -38,6 +38,7 @@ from mvtb_tpu_torch.ops.dft import split_bf16  # noqa: F401  (the plane tiers' s
 from mvtb_tpu_torch.ops.fused import (StageDraws, StylizeConfig, _off_of,
                                       _salt_and_pepper, _to_raw_index,
                                       spike_log_values)
+from mvtb_tpu_torch.utils.profiling import span
 
 # Bits of the kernel's ``flags`` argument (csrc/fused_plane.cu).
 _F_GIBBS, _F_GIBBS_SYM, _F_DISK, _F_INSIDE_OFF, _F_WRAP = 1, 2, 4, 8, 16
@@ -473,10 +474,12 @@ def stylize_kspace_plane(x: torch.Tensor, cfg: StylizeConfig,
     B, C, H, W, D = x.shape
     spatial = (H, W, D)
     flags, *params = plane_params(cfg, spatial, draws, B, C, x.device)
-    k_re, k_im = _dft.half_dft_axis(x.reshape(B * C, H, W, D), axis=1)
+    with span("mvtb.stylize.h_dft"):
+        k_re, k_im = _dft.half_dft_axis(x.reshape(B * C, H, W, D), axis=1)
     o_re, o_im = plane_stylize_half(k_re, k_im, spatial, flags, *params,
                                     fast=cfg.fft_backend == "plane_fast")
-    out = _dft.half_idft_axis_real(o_re, o_im, H, axis=1)
+    with span("mvtb.stylize.h_dft"):
+        out = _dft.half_idft_axis_real(o_re, o_im, H, axis=1)
     out = out.reshape(B, C, H, W, D).to(x.dtype)
     if cfg.sap_p is not None:
         out = _salt_and_pepper(out, draws)

@@ -29,6 +29,7 @@ import torch
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
 from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig
 from mvtb_tpu_torch.train.seg import SegState, seg_train_step
+from mvtb_tpu_torch.utils.profiling import span
 
 # row order of the stacked per-step curves the GAN chunk functions return
 DCGAN_CURVES = ("g_loss", "d_loss", "D_x", "D_G_z1", "D_G_z2")
@@ -57,15 +58,16 @@ def make_chunk_fn(stylize: Optional[StylizeConfig],
         n = idxs.shape[0]
         if draws is not None and len(draws) != n:
             raise ValueError(f"{len(draws)} draws for a chunk of {n} steps")
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(n):
-            img = pool_i.index_select(0, idxs[i])
-            lbl = pool_l.index_select(0, idxs[i])
-            loss = seg_train_step(state, img, lbl, stylize,
-                                  draws=None if draws is None else draws[i],
-                                  generator=generator, device=dev)
-            total += loss.float()
-        return state, generator, total / n
+        with span("mvtb.chunk"):
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(n):
+                img = pool_i.index_select(0, idxs[i])
+                lbl = pool_l.index_select(0, idxs[i])
+                loss = seg_train_step(state, img, lbl, stylize,
+                                      draws=None if draws is None else draws[i],
+                                      generator=generator, device=dev)
+                total += loss.float()
+            return state, generator, total / n
 
     return chunk_fn
 

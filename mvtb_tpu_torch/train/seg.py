@@ -29,6 +29,7 @@ from mvtb_tpu_torch.eval.dice import dice_scores, threshold_predictions
 from mvtb_tpu_torch.ops.fused import StageDraws, StylizeConfig, sample_draws, stylize_batch
 from mvtb_tpu_torch.parallel import dp
 from mvtb_tpu_torch.train.losses import dice_loss
+from mvtb_tpu_torch.utils.profiling import span
 
 
 # optax.amsgrad's defaults, which the reference keeps
@@ -146,24 +147,27 @@ def seg_train_step(state: SegState, image: torch.Tensor, label: torch.Tensor,
     tensor-parallel (:func:`~mvtb_tpu_torch.parallel.tp.shard_state_tp`).
     """
     dev = resolve_device(device)
-    image, label = image.to(dev), label.to(dev)
-    if stylize_cfg is not None and stylize_cfg.any_enabled:
-        image = _stylize(image, stylize_cfg, draws, generator, dev, mesh)
-        if augment_label:
-            label = _stylize(label, stylize_cfg, label_draws, generator, dev, mesh)
-    model, opt = state.model, state.optimizer
-    opt.zero_grad(set_to_none=True)
-    if remat:
-        logits = checkpoint(model, image, use_reentrant=False)
-    else:
-        logits = model(image)
-    loss = dice_loss(logits, label)
-    loss.backward()
-    if mesh is not None:
-        dp.mean_gradients(model.parameters(), mesh)
-    opt.step()
-    state.step += 1
-    return loss.detach() if mesh is None else dp.global_mean(loss, mesh)
+    with span("mvtb.step"):
+        image, label = image.to(dev), label.to(dev)
+        if stylize_cfg is not None and stylize_cfg.any_enabled:
+            with span("mvtb.step.stylize"):
+                image = _stylize(image, stylize_cfg, draws, generator, dev, mesh)
+                if augment_label:
+                    label = _stylize(label, stylize_cfg, label_draws, generator, dev, mesh)
+        model, opt = state.model, state.optimizer
+        opt.zero_grad(set_to_none=True)
+        if remat:
+            logits = checkpoint(model, image, use_reentrant=False)
+        else:
+            logits = model(image)
+        loss = dice_loss(logits, label)
+        loss.backward()
+        with span("mvtb.step.optimizer"):
+            if mesh is not None:
+                dp.mean_gradients(model.parameters(), mesh)
+            opt.step()
+        state.step += 1
+        return loss.detach() if mesh is None else dp.global_mean(loss, mesh)
 
 
 def _stylize(x: torch.Tensor, cfg: StylizeConfig, draws: Optional[StageDraws],

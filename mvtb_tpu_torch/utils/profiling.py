@@ -4,10 +4,30 @@
 ``StepTimer`` records per-step wall times, the warm-up steps excluded from
 the summary, and synchronizes the card before each clock read so a step's
 time covers its device work (PyTorch returns before the card finishes).
+
+``span`` marks a layer of the port in that trace: while a profiler runs, a
+``record_function`` range on the profiler's own clock, so each kernel, copy
+and fill the trace records lies inside the spans of the host code that
+issued it; otherwise one shared no-op. ``counters`` counts work where it
+happens (``count``), and ``to_device`` / ``to_host`` move a tensor and
+count the bytes that cross between host and card. Counters are cumulative
+over the process: readers take ratios of two of them. Neither reads a
+device value, synchronizes, or changes a result.
+
+Spans (parents by nesting on the calling thread): ``mvtb.chunk`` >
+``mvtb.step`` > ``mvtb.step.stylize``, ``mvtb.step.optimizer``;
+``mvtb.stylize_batch`` > ``mvtb.stylize.h_dft``; ``mvtb.eval.volume`` (one
+batch of the harness, the request) > ``mvtb.loader.to_host``,
+``mvtb.eval.to_device``, ``mvtb.sw`` > ``mvtb.sw.grid``,
+``mvtb.sw.forward``, ``mvtb.sw.blend``; ``mvtb.eval.dice``. Counters:
+``copy.h2d_bytes``, ``copy.d2h_bytes``, ``eval.volumes`` (rows the harness
+evaluated), ``sw.tiles`` (sliding-window tiles needed) and
+``sw.tile_slots`` (tile slots forwarded, padding included).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -33,6 +53,43 @@ def trace(logdir: str, device: DeviceLike = None):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+counters: collections.Counter = collections.Counter()
+
+
+def span(name: str):
+    """A context naming a layer of the port: ``record_function(name)``
+    while a ``torch.profiler`` session records and no compile or export
+    trace runs (an exported graph holds no profiler op), else one shared
+    no-op context, whose cost is the enabled check alone."""
+    if torch.autograd._profiler_enabled() and not torch.compiler.is_compiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process's counter ``name``."""
+    counters[name] += n
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)``, its bytes counted in ``copy.h2d_bytes`` when the
+    move takes a host tensor to the card (sizes only; nothing is read)."""
+    out = t.to(device)
+    if t.device.type == "cpu" and out.device.type == "cuda":
+        counters["copy.h2d_bytes"] += t.numel() * t.element_size()
+    return out
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``, its bytes counted in ``copy.d2h_bytes`` when ``t``
+    lives on the card."""
+    if t.device.type == "cuda":
+        counters["copy.d2h_bytes"] += t.numel() * t.element_size()
+    return t.cpu()
 
 
 class StepTimer:
