@@ -82,7 +82,10 @@ class StylizedLoader:
     ``"cuda"``), its draws taken from one ``torch.Generator`` seeded
     ``seed`` at the start of each pass, in place of the JAX package's
     per-batch key split (deterministic for a fixed-parameter prob=1
-    config). Images come back as channel-first numpy.
+    config). Images come back as channel-first numpy in page-locked memory
+    (from the card; ``utils/profiling.py:to_host``), which the array holds
+    for as long as the caller keeps it, as a ``pin_memory`` loader's
+    batches are.
     """
 
     def __init__(self, loader, stylize, seed: int = 0, device: DeviceLike = None):

@@ -10,9 +10,10 @@ time covers its device work (PyTorch returns before the card finishes).
 and fill the trace records lies inside the spans of the host code that
 issued it; otherwise one shared no-op. ``counters`` counts work where it
 happens (``count``), and ``to_device`` / ``to_host`` move a tensor and
-count the bytes that cross between host and card. Counters are cumulative
-over the process: readers take ratios of two of them. Neither reads a
-device value, synchronizes, or changes a result.
+count the bytes that cross between host and card, and those of them that
+cross from or into page-locked host memory. Counters are cumulative over
+the process: readers take ratios of two of them. Neither reads a device
+value, synchronizes, or changes a result.
 
 Spans (parents by nesting on the calling thread): ``mvtb.chunk`` >
 ``mvtb.step`` > ``mvtb.step.stylize``, ``mvtb.step.optimizer``;
@@ -20,9 +21,11 @@ Spans (parents by nesting on the calling thread): ``mvtb.chunk`` >
 batch of the harness, the request) > ``mvtb.loader.to_host``,
 ``mvtb.eval.to_device``, ``mvtb.sw`` > ``mvtb.sw.grid``,
 ``mvtb.sw.forward``, ``mvtb.sw.blend``; ``mvtb.eval.dice``. Counters:
-``copy.h2d_bytes``, ``copy.d2h_bytes``, ``eval.volumes`` (rows the harness
-evaluated), ``sw.tiles`` (sliding-window tiles needed) and
-``sw.tile_slots`` (tile slots forwarded, padding included).
+``copy.h2d_bytes``, ``copy.d2h_bytes``, ``copy.h2d_pinned_bytes``,
+``copy.d2h_pinned_bytes`` (the part of each from or into page-locked
+memory), ``eval.volumes`` (rows the harness evaluated), ``sw.tiles``
+(sliding-window tiles needed) and ``sw.tile_slots`` (tile slots forwarded,
+padding included).
 """
 
 from __future__ import annotations
@@ -77,19 +80,33 @@ def count(name: str, n: int = 1) -> None:
 
 def to_device(t: torch.Tensor, device) -> torch.Tensor:
     """``t.to(device)``, its bytes counted in ``copy.h2d_bytes`` when the
-    move takes a host tensor to the card (sizes only; nothing is read)."""
+    move takes a host tensor to the card (sizes only; nothing is read), and
+    in ``copy.h2d_pinned_bytes`` too when that tensor is page-locked."""
     out = t.to(device)
     if t.device.type == "cpu" and out.device.type == "cuda":
-        counters["copy.h2d_bytes"] += t.numel() * t.element_size()
+        n = t.numel() * t.element_size()
+        counters["copy.h2d_bytes"] += n
+        if t.is_pinned():
+            counters["copy.h2d_pinned_bytes"] += n
     return out
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
-    """``t.cpu()``, its bytes counted in ``copy.d2h_bytes`` when ``t``
-    lives on the card."""
-    if t.device.type == "cuda":
-        counters["copy.d2h_bytes"] += t.numel() * t.element_size()
-    return t.cpu()
+    """A host copy of ``t``. From the card: one blocking copy into
+    page-locked memory, which the bus moves at its full rate both ways (a
+    later ``to_device`` of the copy too), its bytes counted in
+    ``copy.d2h_bytes`` and ``copy.d2h_pinned_bytes``. PyTorch's caching
+    host allocator serves the buffer, so once a copy is dropped its block
+    serves the next. Any other tensor: ``t.cpu()`` (a host tensor as it is),
+    nothing counted."""
+    if t.device.type != "cuda":
+        return t.cpu()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    n = host.numel() * host.element_size()
+    counters["copy.d2h_bytes"] += n
+    counters["copy.d2h_pinned_bytes"] += n
+    return host
 
 
 class StepTimer:
