@@ -23,6 +23,7 @@ be imported, and log one line saying they were skipped when it cannot.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -40,7 +41,7 @@ from mvtb_tpu_torch.eval import plots
 from mvtb_tpu_torch.eval.harness import ModelEvaluation
 from mvtb_tpu_torch.experiments.registry import ExperimentConfig, fast_science
 from mvtb_tpu_torch.experiments.registry import get as get_config
-from mvtb_tpu_torch.models import UNet
+from mvtb_tpu_torch.models import SEG_ARCHS, build_seg_model
 from mvtb_tpu_torch.train.checkpoint import CheckpointManager
 from mvtb_tpu_torch.train.chunked import (DCGAN_CURVES, RECON_CURVES, make_chunk_fn,
                                           make_dcgan_chunk_fn, make_recon_gan_chunk_fn)
@@ -137,14 +138,26 @@ def epoch_generator(base: int, epoch: int, device: DeviceLike = None) -> torch.G
     return torch.Generator(device=resolve_device(device)).manual_seed(int(word))
 
 
-def _seg_state(cfg: ExperimentConfig, seed: int, dev: torch.device) -> SegState:
-    """The run's UNet, initialised from ``seed`` (PyTorch's generators are
-    forked, so the caller's stay as they were), and the reference
-    optimizer."""
+# the crop a model other than the config's UNet trains on (its published
+# one), and the most crops a step of it takes: what one replica holds on an
+# 80 GB card without activation checkpointing (a ``fast`` profile's batch
+# of 16 is cut to it)
+ARCH_SPATIAL = {"swin_unetr": (128, 128, 128)}
+ARCH_MAX_BATCH = {"swin_unetr": 4}
+
+
+def _seg_state(cfg: ExperimentConfig, seed: int, dev: torch.device,
+               arch: str = "unet") -> SegState:
+    """The run's segmentation model (:func:`~mvtb_tpu_torch.models.
+    build_seg_model`: the config's UNet, or ``arch`` at its published
+    widths), initialised from ``seed`` (PyTorch's generators are forked, so
+    the caller's stay as they were), and the reference optimizer."""
+    widths = (dict(channels=cfg.channels, strides=cfg.strides,
+                   num_res_units=cfg.num_res_units) if arch == "unet" else {})
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
-        model = UNet(cfg.in_channels, cfg.out_channels, cfg.channels, cfg.strides,
-                     cfg.num_res_units, device=dev, dtype=_DTYPES[cfg.model_dtype])
+        model = build_seg_model(arch, cfg.in_channels, cfg.out_channels, device=dev,
+                                dtype=_DTYPES[cfg.model_dtype], **widths)
     return create_seg_state(
         model, reference_optimizer(model.parameters(), cfg.lr, cfg.weight_decay),
         device=dev)
@@ -210,11 +223,11 @@ def _save_samples(cfg: ExperimentConfig, g_state, real: torch.Tensor,
 
 def _run_segmentation(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
                       seed: int, workdir: Optional[str], log, dev: torch.device,
-                      val_batches: int = 12) -> Dict:
+                      val_batches: int = 12, arch: str = "unet") -> Dict:
     """Per-step training: batches from the host pool, prefetched to the
     card; a checkpoint at each validation that improves the best mean Dice.
     The losses of an epoch are summed on the card and read once."""
-    state = _seg_state(cfg, seed, dev)
+    state = _seg_state(cfg, seed, dev, arch)
     ckpt = None
     if workdir:
         ckpt = CheckpointManager(os.path.join(workdir, "ckpt"),
@@ -264,7 +277,8 @@ def _run_segmentation(cfg: ExperimentConfig, steps_per_epoch: int, epochs: int,
 def _run_segmentation_chunked(cfg: ExperimentConfig, steps_per_epoch: int,
                               epochs: int, seed: int, workdir: Optional[str],
                               log, dev: torch.device, val_batches: int = 12,
-                              pool: int = 48, resume: bool = False) -> Dict:
+                              pool: int = 48, resume: bool = False,
+                              arch: str = "unet") -> Dict:
     """Reference-scale segmentation training, one chunk (one host read) per
     epoch over pools on the card.
 
@@ -276,7 +290,7 @@ def _run_segmentation_chunked(cfg: ExperimentConfig, steps_per_epoch: int,
     fresh start), and per epoch or validation ``chunk_s`` (the chunk and
     its read), ``val_s`` and ``save_s``.
     """
-    state = _seg_state(cfg, seed, dev)
+    state = _seg_state(cfg, seed, dev, arch)
 
     t = time.perf_counter()
     pool_i, pool_l = _pool_arrays(cfg, seed, pool, dev)
@@ -805,7 +819,7 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         workdir: Optional[str] = None, verbose: bool = True,
         val_batches: int = 12, chunked: bool = False, resume: bool = False,
         pool: int = 48, fast: bool = False, device: DeviceLike = None,
-        ckpt_every: Optional[int] = None) -> Dict:
+        ckpt_every: Optional[int] = None, arch: str = "unet") -> Dict:
     """Run one segmentation, learnable-stylization or GAN experiment end to
     end; returns the history and the final state(s): a segmentation run's
     best mean Dice and ``state``, a learnable run's per-step ``trajectory``
@@ -826,7 +840,11 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
     5)``). ``fast=True`` applies
     :func:`~mvtb_tpu_torch.experiments.registry.fast_science` (batch 16,
     ``plane_fast``). ``device=None`` means ``"cuda"`` and raises without a
-    card.
+    card. ``arch`` names the segmentation model (``SEG_ARCHS``): ``"unet"``,
+    the config's, or ``"swin_unetr"``, a SwinUNETR at its published widths
+    trained on its published crop (``ARCH_SPATIAL``, 128^3) at most
+    ``ARCH_MAX_BATCH`` (4) crops a step, the run's name gaining
+    ``_swin_unetr``; the other kinds train their own models.
 
     At ``workdir`` the run writes ``ckpt/`` (``{epoch}.pt`` and its
     metrics), ``history.json`` (chunked runs) and ``{name}_result.json``,
@@ -860,6 +878,14 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         cfg = fast_science(cfg)
     if cfg.kind not in ("segmentation",) + LEARNABLE_KINDS + GAN_KINDS:
         raise ValueError(f"unknown experiment kind {cfg.kind}")
+    if arch not in SEG_ARCHS:
+        raise ValueError(f"unknown segmentation model {arch!r}; one of {sorted(SEG_ARCHS)}")
+    if arch != "unet":
+        if cfg.kind != "segmentation":
+            raise ValueError(f"arch={arch!r} applies to segmentation configs only "
+                             f"({cfg.name} is kind={cfg.kind!r})")
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}_{arch}", spatial=ARCH_SPATIAL[arch],
+                                  batch_size=min(cfg.batch_size, ARCH_MAX_BATCH[arch]))
     dev = resolve_device(device)
     epochs = cfg.epochs if epochs is None else epochs
     log = print if verbose else (lambda *_: None)
@@ -883,10 +909,10 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         result = _run_segmentation_chunked(cfg, steps_per_epoch, epochs, seed,
                                            workdir, log, dev,
                                            val_batches=val_batches, pool=pool,
-                                           resume=resume)
+                                           resume=resume, arch=arch)
     else:
         result = _run_segmentation(cfg, steps_per_epoch, epochs, seed, workdir,
-                                   log, dev, val_batches=val_batches)
+                                   log, dev, val_batches=val_batches, arch=arch)
     result["wall_time_s"] = time.time() - t0
 
     if workdir:

@@ -50,6 +50,11 @@ class ReferenceAmsgrad(torch.optim.Optimizer):
 
     The state of each parameter holds ``mu``, ``nu``, ``nu_max`` and the
     step ``count``, as optax's ``ScaleByAmsgradState``.
+
+    The parameters that share a count are updated together, each line
+    above one ``torch._foreach_*`` call over all of them (on the card a
+    few multi-tensor launches a call, not one launch a parameter), with
+    the same float32 operations in the same order.
     """
 
     def __init__(self, params, lr: float = 1e-4, weight_decay: float = 1e-5):
@@ -62,7 +67,7 @@ class ReferenceAmsgrad(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
-            lr, wd = group["lr"], group["weight_decay"]
+            by_count = {}
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -73,20 +78,34 @@ class ReferenceAmsgrad(torch.optim.Optimizer):
                     st["nu"] = torch.zeros_like(p)
                     st["nu_max"] = torch.zeros_like(p)
                 st["count"] += 1
-                t = st["count"]
-                g = p.grad + wd * p
-                st["mu"] = (1 - B1) * g + B1 * st["mu"]
-                st["nu"] = (1 - B2) * (g * g) + B2 * st["nu"]
-                # optax's bias corrections: 1 - decay**count in float32,
-                # handed to the division as the exact float32 scalar (no
-                # host-to-device copy per parameter)
-                bc1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** t)
-                bc2 = float(1 - torch.tensor(B2, dtype=torch.float32) ** t)
-                mu_hat = st["mu"] / bc1
-                nu_hat = st["nu"] / bc2
-                st["nu_max"] = torch.maximum(st["nu_max"], nu_hat)
-                p.add_((-lr) * (mu_hat / (torch.sqrt(st["nu_max"]) + EPS)))
+                by_count.setdefault(st["count"], []).append(p)
+            for t, ps in by_count.items():
+                self._update(ps, t, group["lr"], group["weight_decay"])
         return loss
+
+    def _update(self, ps: List[torch.Tensor], t: int, lr: float, wd: float) -> None:
+        sts = [self.state[p] for p in ps]
+        mu, nu, nu_max = ([st[k] for st in sts] for k in ("mu", "nu", "nu_max"))
+        g = torch._foreach_mul(ps, wd)
+        torch._foreach_add_(g, [p.grad for p in ps])
+        d = torch._foreach_mul(g, 1 - B1)
+        torch._foreach_mul_(mu, B1)
+        torch._foreach_add_(mu, d)
+        torch._foreach_mul_(g, g)
+        torch._foreach_mul_(g, 1 - B2)
+        torch._foreach_mul_(nu, B2)
+        torch._foreach_add_(nu, g)
+        # optax's bias corrections: 1 - decay**count in float32, handed to
+        # the division as the exact float32 scalar (no host-to-device copy)
+        bc1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** t)
+        bc2 = float(1 - torch.tensor(B2, dtype=torch.float32) ** t)
+        torch._foreach_maximum_(nu_max, torch._foreach_div(nu, bc2))
+        d = torch._foreach_sqrt(nu_max)
+        torch._foreach_add_(d, EPS)
+        g = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(g, d)
+        torch._foreach_mul_(g, -lr)
+        torch._foreach_add_(ps, g)
 
 
 def reference_optimizer(params: Iterable, lr: float = 1e-4,

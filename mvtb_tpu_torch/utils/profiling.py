@@ -20,12 +20,16 @@ Spans (parents by nesting on the calling thread): ``mvtb.chunk`` >
 ``mvtb.stylize_batch`` > ``mvtb.stylize.h_dft``; ``mvtb.eval.volume`` (one
 batch of the harness, the request) > ``mvtb.loader.to_host``,
 ``mvtb.eval.to_device``, ``mvtb.sw`` > ``mvtb.sw.grid``,
-``mvtb.sw.forward``, ``mvtb.sw.blend``; ``mvtb.eval.dice``. Counters:
+``mvtb.sw.forward``, ``mvtb.sw.blend``; ``mvtb.eval.dice``; in a
+SwinUNETR forward (``models/swin_unetr.py``) ``mvtb.swin.encoder`` >
+``mvtb.swin.window``, ``mvtb.swin.attn``, and ``mvtb.unetr.conv``. Counters:
 ``copy.h2d_bytes``, ``copy.d2h_bytes``, ``copy.h2d_pinned_bytes``,
 ``copy.d2h_pinned_bytes`` (the part of each from or into page-locked
 memory), ``eval.volumes`` (rows the harness evaluated), ``sw.tiles``
-(sliding-window tiles needed) and ``sw.tile_slots`` (tile slots forwarded,
-padding included).
+(sliding-window tiles needed), ``sw.tile_slots`` (tile slots forwarded,
+padding included), and SwinUNETR's ``swin.tokens`` (real tokens entering a
+block), ``swin.window_tokens`` (padded tokens it attends) and
+``swin.windows``.
 """
 
 from __future__ import annotations

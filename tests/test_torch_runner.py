@@ -47,8 +47,8 @@ def from_jax_init(monkeypatch):
     params = _jax_init_params(jreg.ExperimentConfig(name="init", **TINY))
     real = trunner._seg_state
 
-    def seg_state(cfg, seed, dev):
-        state = real(cfg, seed, dev)
+    def seg_state(cfg, seed, dev, *arch):
+        state = real(cfg, seed, dev, *arch)
         state.model.load_state_dict(params)
         return state
 

@@ -144,6 +144,32 @@ def test_step_two_denominator_example():
     assert float(torch_denom) == pytest.approx(0.7073, rel=1e-3)
 
 
+def test_reference_optimizer_keeps_each_parameters_count():
+    # a parameter without a gradient is skipped, so counts part; each
+    # parameter then steps exactly as it would in an optimizer of its own
+    # over its own updates (its bias corrections follow its own count)
+    rng = np.random.RandomState(5)
+    p0 = {"a": rng.randn(6).astype(np.float32), "b": rng.randn(3, 2).astype(np.float32)}
+    grads = [{k: rng.randn(*v.shape).astype(np.float32) for k, v in p0.items()}
+             for _ in range(4)]
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
+    opt = tseg.reference_optimizer(list(tp.values()))
+    for t, g in enumerate(grads):
+        for k, p in tp.items():
+            p.grad = None if (k == "b" and t == 0) else torch.from_numpy(g[k].copy())
+        opt.step()
+    for k, used in (("a", grads), ("b", grads[1:])):
+        alone = torch.nn.Parameter(torch.from_numpy(p0[k].copy()))
+        own = tseg.reference_optimizer([alone])
+        for g in used:
+            alone.grad = torch.from_numpy(g[k].copy())
+            own.step()
+        assert opt.state[tp[k]]["count"] == own.state[alone]["count"] == len(used)
+        assert torch.equal(tp[k], alone), k
+        for m in ("mu", "nu", "nu_max"):
+            assert torch.equal(opt.state[tp[k]][m], own.state[alone][m]), (k, m)
+
+
 # --------------------------------------------------------------------------
 # one train step
 # --------------------------------------------------------------------------
