@@ -4,16 +4,19 @@ mvtb_tpu/eval/sliding_window.py).
 MONAI's ``sliding_window_inference`` (used by the reference's TCGA
 evaluation notebooks, SURVEY.md section 2.4): tile the volume with an
 overlapping grid, run the network over tiles in chunks, and blend with
-constant or Gaussian importance weighting. The grid, the importance map and
-the blend normalizer are built on the host in float32 numpy, as the JAX
-package builds them.
+constant or Gaussian importance weighting. The grid's start offsets are
+host ints; the importance map and the blend normalizer are built on the
+volume's device, in the float32 operations the JAX package's numpy build
+runs and in its order, so they are bit-equal to it and nothing of the
+volume's size crosses from the host (Gaussian mode moves its three 1-D
+factors).
 """
 
 from __future__ import annotations
 
 import operator
 from functools import partial
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,18 +37,52 @@ def _grid_positions(size: int, roi: int, overlap: float) -> Tuple[int, ...]:
     return tuple(starts)
 
 
-def _gaussian_importance(roi: Sequence[int], sigma_scale: float = 0.125) -> np.ndarray:
-    """Separable Gaussian importance map (MONAI's BlendMode.GAUSSIAN)."""
-    out = np.ones(tuple(roi), np.float32)
-    for axis, n in enumerate(roi):
+def _gaussian_factors(roi: Sequence[int], sigma_scale: float = 0.125) -> List[np.ndarray]:
+    """The float32 1-D factors of :func:`_gaussian_importance`, one an axis."""
+    factors = []
+    for n in roi:
         center = (n - 1) / 2.0
         sigma = max(n * sigma_scale, 1e-3)
         g = np.exp(-0.5 * ((np.arange(n) - center) / sigma) ** 2).astype(np.float32)
-        g = np.maximum(g, g.max() * 1e-3)  # avoid zero weights at borders
-        shape = [1] * len(roi)
-        shape[axis] = n
-        out = out * g.reshape(shape)
+        factors.append(np.maximum(g, g.max() * 1e-3))  # avoid zero weights at borders
+    return factors
+
+
+def _on_axis(nd: int, axis: int) -> List[int]:
+    """The shape that broadcasts a 1-D factor along ``axis`` of ``nd``."""
+    return [-1 if a == axis else 1 for a in range(nd)]
+
+
+def _gaussian_importance(roi: Sequence[int], sigma_scale: float = 0.125) -> np.ndarray:
+    """Separable Gaussian importance map (MONAI's BlendMode.GAUSSIAN)."""
+    out = np.ones(tuple(roi), np.float32)
+    for axis, g in enumerate(_gaussian_factors(roi, sigma_scale)):
+        out = out * g.reshape(_on_axis(len(roi), axis))
     return out
+
+
+def _blend_weights(padded: Tuple[int, ...], roi: Tuple[int, ...], overlap: float,
+                   mode: str, dev: torch.device):
+    """``(positions, importance, norm)``: the grid's start offsets over the
+    padded volume (host tuples, in grid order), and on ``dev`` the float32
+    importance map and blend normalizer. Both are bit-equal to the numpy
+    build: ones, times each Gaussian factor in axis order (only the factors
+    cross from the host), and the map added into zeros at every position
+    in grid order."""
+    nd = len(roi)
+    positions = [()]
+    for d in range(nd):
+        positions = [p + (s,) for p in positions
+                     for s in _grid_positions(padded[d], roi[d], overlap)]
+    importance = torch.ones(roi, dtype=torch.float32, device=dev)
+    if mode == "gaussian":
+        for axis, g in enumerate(_gaussian_factors(roi)):
+            importance = importance * to_device(torch.from_numpy(g), dev).reshape(
+                _on_axis(nd, axis))
+    norm = torch.zeros(padded, dtype=torch.float32, device=dev)
+    for pos in positions:
+        norm[tuple(slice(s, s + r) for s, r in zip(pos, roi))] += importance
+    return positions, importance, norm
 
 
 def _chunking(total: int, tile_batch: int) -> Tuple[int, int]:
@@ -116,20 +153,8 @@ def sliding_window_inference(
         padded = tuple(image.shape[2:])
 
         with span("mvtb.sw.grid"):
-            grids = [_grid_positions(padded[d], roi[d], overlap) for d in range(nd)]
-            positions = [()]
-            for axis_starts in grids:
-                positions = [p + (s,) for p in positions for s in axis_starts]
-            T = len(positions)
-
-            importance_np = (_gaussian_importance(roi) if mode == "gaussian"
-                             else np.ones(roi, np.float32))
-            # the blend normalizer depends only on the grid: built on the host
-            norm_np = np.zeros(padded, np.float32)
-            for pos in positions:
-                norm_np[tuple(slice(s, s + r) for s, r in zip(pos, roi))] += importance_np
-            importance = to_device(torch.from_numpy(importance_np), dev)
-            norm = to_device(torch.from_numpy(norm_np), dev)
+            positions, importance, norm = _blend_weights(padded, roi, overlap, mode, dev)
+        T = len(positions)
 
         B, C = image.shape[:2]
         total = T * B

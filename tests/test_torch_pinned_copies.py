@@ -118,19 +118,19 @@ def test_stylized_loader_yields_page_locked_numpy_equal_to_the_pageable_copy(
 @pytest.mark.cuda
 def test_harness_moves_the_stylized_image_from_page_locked_memory(cuda_device):
     """One stylized volume: the harness's move of the loader's image is the
-    one page-locked HtoD; the stylize's input, the label and the sliding
-    window's importance map and normalizer come from pageable numpy."""
+    one page-locked HtoD; the stylize's input and the label come from
+    pageable numpy, and the sliding window moves nothing (its importance map
+    and normalizer are built on the card)."""
     torch.manual_seed(0)
     model = UNet(C, 3, (4, 8), (2,), 1, device=cuda_device).eval()
     ev = ModelEvaluation(model, out_channels=3, roi_size=ROI, device=cuda_device)
     batch = _volumes(1)
     image, label = batch[0]["image"].nbytes, batch[0]["label"].nbytes
-    grid = 4 * (int(np.prod(ROI)) + int(np.prod(SPATIAL)))
     sty = StylizeConfig(disk_r=3.0, disk_prob=1.0, fft_backend="plane_fast")
     before = profiling.counters.copy()
     ev.dataset_eval_multi(StylizedLoader(batch, sty, seed=0, device=cuda_device))
     got = profiling.counters - before
-    assert got["copy.h2d_bytes"] == 2 * image + label + grid
+    assert got["copy.h2d_bytes"] == 2 * image + label
     assert got["copy.h2d_pinned_bytes"] == image
     assert got["copy.d2h_bytes"] == got["copy.d2h_pinned_bytes"] == image
 

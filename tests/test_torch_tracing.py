@@ -191,20 +191,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_byte_counters_read_the_bytes_a_volume_moves(cuda_device):
-    """A clean volume moves its image and label to the card, and the
-    sliding window its importance map and normalizer (float32, the roi's
-    and the volume's size); a stylized one also moves the image to the card
-    and back for the stylize."""
+    """A clean volume moves its image and label to the card (the sliding
+    window builds its importance map and normalizer there and moves
+    nothing); a stylized one also moves the image to the card and back for
+    the stylize."""
     torch.manual_seed(0)
     model = UNet(C, 3, (4, 8), (2,), 1, device=cuda_device).eval()
     ev = ModelEvaluation(model, out_channels=3, roi_size=ROI, device=cuda_device)
     batch = _volumes(1)
     image, label = batch[0]["image"].nbytes, batch[0]["label"].nbytes
-    grid = 4 * (int(np.prod(ROI)) + int(np.prod(SPATIAL)))
     sty = StylizeConfig(disk_r=3.0, disk_prob=1.0, fft_backend="plane_fast")
-    for loader, h2d, d2h in ((batch, image + label + grid, 0),
+    for loader, h2d, d2h in ((batch, image + label, 0),
                              (StylizedLoader(batch, sty, seed=0, device=cuda_device),
-                              2 * image + label + grid, image)):
+                              2 * image + label, image)):
         before = profiling.counters.copy()
         ev.dataset_eval_multi(loader)
         got = profiling.counters - before
