@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 from the root of a checkout. It needs one CUDA card and the CUDA toolkit
-(``nvcc``); it exits non-zero, printing no result, without them. Phases, in
-order, each fatal on failure:
+(``nvcc``); it exits non-zero, printing no result, without them. It checks
+and does not time: the benchmark (``python3 portbench/run.py``, with
+``--trace 1`` for the layers) measures the port, and ``plane_profile.py``
+the plane kernel's stages. Phases, in order, each fatal on failure:
 
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA
    versions, the float32 precision flags as set here (TF32 off everywhere,
@@ -20,7 +22,10 @@ order, each fatal on failure:
    than one kernel tile, which takes two scratch buffers), for every stage
    combination of the JAX package's plane tests; relative-of-max error at
    most 5e-5 (``plane``: both sides bf16x3, whose split resolves 2^-17 of an
-   element) and 2e-2 (``plane_fast``). Then every matmul-DFT axis kernel
+   element) and 2e-2 (``plane_fast``); under the bench stack at the eval
+   slice's and the bench batch's planes, each tier's kernel against the
+   complex128 ``plane_stylize_half_exact`` at most 3x its plain version's
+   error. Then every matmul-DFT axis kernel
    (r2c, c2c, c2r; lane and sublane; ``highest``, ``high`` and ``default``)
    against its plain version at the views of the train shape (8, 128, 128,
    64), the bench shape (16, 240, 240, 155) and an odd (3, 7, 13, 11), at
@@ -65,11 +70,7 @@ order, each fatal on failure:
    tail's difference reported and held under the JAX package's 0.15); the
    CLI in a subprocess (one summary JSON line); over one chunk of each
    profile, the host reads that ``torch.cuda.set_sync_debug_mode`` reports
-   (its control, the loss read after the chunk, must be reported), the
-   host's issue time against the wall time, and from a ``torch.profiler``
-   trace the device's busy time, idle share and top kernels; pool
-   seconds, train vol/s (chunks alone and with validation), ms per step,
-   validation, checkpoint save and restore ms;
+   (its control, the loss read after the chunk, must be reported);
 7. pointwise kernel phase: the salt & pepper and polar kernels against
    their plain versions at a 4x240x240x155 volume, (3, 7, 13, 11) and 1001
    elements (also through an offset, unaligned view): sap bit-equal at
@@ -96,10 +97,9 @@ order, each fatal on failure:
    the plain version's error), the launches checked by body, route and tier
    (the full-spectrum r2c and c2r on the complex path); each of those axis
    layouts alone (n = 128, and the full matrices at n = 240), against its
-   plain version and complex128, timed beside its bound and its
-   ``torch.fft`` call; ``hybrid`` against ``xla`` at 128x128x64 and
-   240x240x155 (1e-5 of the max); the 2D stack on ``dft``, card against
-   CPU (1e-5 of the max);
+   plain version and complex128; ``hybrid`` against ``xla`` at 128x128x64
+   and 240x240x155 (1e-5 of the max); the 2D stack on ``dft``, card
+   against CPU (1e-5 of the max);
 10. GAN phase (the GAN family through ``run()`` at the registry's widths:
    128x128 slices, batch 4, DCGAN ngf = ndf = 128, about 92 M parameters,
    ReconGAN nf = 16): ``dcgan`` chunked for 4 epochs of 8 steps with its
@@ -113,8 +113,7 @@ order, each fatal on failure:
    largest; the float32 spreads reported: these gradients are
    ill-conditioned in float32); no
    hand-written kernel launched (the stylize runs ``auto`` -> ``dft``); per
-   kind ms per step, steps/s, FID, checkpoint save and restore ms, and over
-   single chunks the host reads, the device's idle share and top kernels;
+   kind the FID, and over single chunks the host reads;
 11. domain phase (the hospital-domain protocol, ``run_domain_experiment``,
    at the registry's full width: 1 -> 1, UNet 16..256, bf16, 128x128x64, 8
    volumes a hospital; cut in depth to 2 epochs of 8 steps):
@@ -123,16 +122,15 @@ order, each fatal on failure:
    ``plane_fast`` launch per train step and per ``StylizedLoader`` batch,
    counted from the loaders) and that entry on ``dft_pallas`` (r2c, c2c, c2r
    1, 4, 1 per stylize, all at ``high``): finite losses, Dice and gap, the
-   written files, ms per step, evaluation seconds per hospital, pool
-   seconds; card against CPU from the same weights in float32 (disk r = 15
-   on ``plane``; each hospital's Dice within 1e-3, one stylized batch within
-   5e-5 of the max); sliding-window inference at 240x240x155 (ROI
-   128x128x64, overlap 0.25, 27 tiles; ms and volumes/s at B = 1 constant
-   and gaussian, B = 2, B = 1 per tile; in float32 ``tile_batch`` 1 against
-   8 within 1e-5 of the max and ``low_memory`` both ways equal); the NIfTI
+   written files; card against CPU from the same weights in float32 (disk
+   r = 15 on ``plane``; each hospital's Dice within 1e-3, one stylized batch
+   within 5e-5 of the max); sliding-window inference at 240x240x155 (ROI
+   128x128x64, overlap 0.25, 27 tiles; finite at B = 1 constant and
+   gaussian, B = 2, B = 1 per tile; in float32 ``tile_batch`` 1 against 8
+   within 1e-5 of the max and ``low_memory`` both ways equal); the NIfTI
    path: a 10-volume 4x240x240x155 Decathlon tree (written by a second
    process meanwhile), one gzipped volume through the native and the Python
-   reader (equal arrays), read and resample ms, and the corruption sweep
+   reader (equal arrays), one read and resample, and the corruption sweep
    (``BratsValIterDataset``, two corruptions) through ``ModelEvaluation``
    with a full-width 4 -> 3 UNet and the sliding window; whether the native
    library built;
@@ -147,13 +145,11 @@ order, each fatal on failure:
    after the step within 1e-6, the float32 spreads reported; at alpha = 0
    in float32, finite, and held with zero conv biases); ``gibbs0p7_layer_grad``,
    ``gibbs0p7_layer_GD`` and ``spikes11_layer_GD`` chunked (finite
-   trajectories, no hand-written kernel: the layers run ``torch.fft``, ms a
-   step and steps/s); ``gibbs0p7_layer_GD`` killed and resumed against an
-   uninterrupted run with deterministic cuDNN (equal prefix and
-   trajectory); a per-step ``gibbs0p7_layer_fixed`` epoch; over single
-   chunks the host reads (none inside a chunk, the runner's one read after
-   it), the device's idle share and top kernels, and the joint step's ms
-   with TF32 on (cuDNN's float32 default) and with the autotuner;
+   trajectories, no hand-written kernel: the layers run ``torch.fft``);
+   ``gibbs0p7_layer_GD`` killed and resumed against an uninterrupted run
+   with deterministic cuDNN (equal prefix and trajectory); a per-step
+   ``gibbs0p7_layer_fixed`` epoch; over single chunks the host reads (none
+   inside a chunk, the runner's one read after it);
    ``ModelEvaluation.from_checkpoint`` with ``gibbs_unet`` and
    ``spikes_unet`` on the runs' checkpoints (a finite Dice);
 13. parallel phase (the ``(data, model)`` mesh and the sharded paths;
@@ -162,11 +158,11 @@ order, each fatal on failure:
    phase's batch (the full-width UNet in float32, the bench stack on
    ``dft_pallas``, SGD(1.0), deterministic cuDNN) bit-equal to the plain
    step over 2 steps, launching r2c, c2c and c2r 1, 4 and 1 times a step at
-   ``high``; ms a step of both, in turns, and the gradient all-reduce's ms.
-   Then two gloo ranks sharing the card, in subprocesses (``chip_smoke.py
-   --parallel-rank ...``) whose exit codes are fatal: gloo's point-to-point
-   send on a CUDA tensor tried in a pair of its own (recorded, not held:
-   it fails, so the port's exchanges use collectives), all_reduce (sum,
+   ``high``. Then two gloo ranks sharing the card, in subprocesses
+   (``chip_smoke.py --parallel-rank ...``) whose exit codes are fatal:
+   gloo's point-to-point send on a CUDA tensor tried in a pair of its own
+   (recorded, not held: it fails, so the port's exchanges use
+   collectives), all_reduce (sum,
    min, max), all_gather, all_to_all_single and broadcast on CUDA tensors
    checked, the H-split stylize of a 4x240x240x155 volume under the bench
    stack against ``stylize_kspace`` on the backend the split path resolves
@@ -175,8 +171,7 @@ order, each fatal on failure:
    train step of the full-width UNet at 240x240x160, SGD(1.0)) against the
    one-rank step (loss within 1e-4 relative, gradients within 1e-3 of
    their norm), and a (data 1 x model 2) tensor-parallel step at the train
-   phase's batch against the one-rank step (the same bounds); the 2-rank
-   times are correctness runs on one shared card, not scaling numbers;
+   phase's batch against the one-rank step (the same bounds);
 14. serve phase (``mvtb_tpu_torch.serve``: ``torch.export`` programs whose
    kernels run as the custom ops of ``ops/_ops.py``): the served eval
    program ``UNet(stylize_batch(x))`` on ``plane`` at 2x4x240x240x160 with
@@ -193,12 +188,8 @@ order, each fatal on failure:
    card by ``load_fn`` at 4x240x240x155 (S&P bit-equal to its plain
    version, its seed a program input; polar within 1e-6 elementwise; one
    launch each); ``export_sharded_fn`` of the data-sharded UNet forward on
-   an NCCL world of one against the plain forward; export, save and load
-   seconds, program and weight bytes, served against eager ms (CUDA events,
-   median of 5); what the custom-op wrapping costs: the train step and
-   ``stylize_batch`` on ``dft_pallas`` with the axis kernels reached through
-   the op against the direct launch, in turns, and the host's time per
-   small axis call;
+   an NCCL world of one against the plain forward; program and weight
+   bytes;
 15. compat phase, in a process of its own: ``compat.install()`` and the
    reference's ``baseline.py`` training loop verbatim through the bare
    ``monai`` names (``UNet(dimensions=3, ...)`` 16..256 on ``cuda:0``,
@@ -213,32 +204,21 @@ order, each fatal on failure:
    family, UNet 16..256 in bf16 at 4x128x128x64, batch 16, 2 chunks of 4
    steps, pools of 16): the plane kernel launched exactly once per
    stylized train step and by nothing else, no plain version on the card,
-   a finite Dice table, and over one chunk the host reads and the device's
-   idle share; ``FFT_BACKEND=dft_pallas`` for 2 steps (r2c, c2c, c2r 1, 4,
+   a finite Dice table, and over one chunk the host reads;
+   ``FFT_BACKEND=dft_pallas`` for 2 steps (r2c, c2c, c2r 1, 4,
    1 a step); its evaluation on the card against the CPU for the stylized
    weights in float32 (per-class Dice within 1e-3); ``cross_corruption_
    matrix`` on ``FAST=1`` for 2 steps a model with its learnable row (the
    plane launches of every train and eval stylize the kernel takes, a
-   finite matrix); ``fullvol_probe`` at 240x240x160, B = 1 (ms a step by
-   CUDA events, peak GB, finite loss) and B = 2 (whether it fits); every
-   other script at its smallest useful size, ``full_scale_run`` stopped
-   after 2 epochs and resumed to 4; one line a script with its seconds and
-   output keys;
-17. timing with CUDA events: the plane kernel, its plain version and
-   ``torch.fft`` (fft2 + ifft2 over the same planes: the transform part
-   only) at the slice and bench shapes, with the bound at the bf16
-   tensor-core rate (3x the FLOP for bf16x3), the achieved rate and the
-   share of the bound; each axis kernel at every tier, its plain version,
-   the bound at the tier's rate and the share of it, and the ``torch.fft``
-   call of the same transform at every view of the train and bench shapes;
-   ``stylize_batch`` ms and vol/s on both paths; the eval step's ms and the train step's ms (host clock around steps
-   ending in ``torch.cuda.synchronize()``); each pointwise kernel, its
-   plain version, the composite torch version and the extrema pass at the
-   full volume; the pipeline's ms per volume (host clock) and each
-   magnitude-edit strategy's ms.
+   finite matrix); ``fullvol_probe`` at 240x240x160, B = 1 (finite loss)
+   and B = 2 (whether it fits); every other script at its smallest useful
+   size, ``full_scale_run`` stopped after 2 epochs and resumed to 4; one
+   line a script with its seconds and output keys.
 
-The last lines are the card's ``nvidia-smi`` line, one ``{"kernels": ...}``
-JSON object and ``{"ok": true, "device": {...}}``.
+Launches are read as differences of two readings of the process's
+``launch.*`` counters (``mvtb_tpu_torch/utils/profiling.py``). Each phase
+prints one JSON line with its wall ``seconds``; the last lines are the
+card's ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -249,7 +229,6 @@ import math
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -257,12 +236,6 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-# NVIDIA H100 SXM data sheet, dense: HBM bytes/s, float32 CUDA-core and bf16
-# tensor-core FLOP/s.
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 
 # The stage combinations of tests/test_fused_plane.py (JAX package).
 FLAG_CASES = [
@@ -296,10 +269,6 @@ SMALL_STACK = dict(disk_r=(3.0, 6.0), plane_axes=(6.0, 5.0, 4.0),
 # whole operand may round to a neighbouring bf16 value (2^-8).
 TOL = {"plane": 5e-5, "plane_fast": 2e-2}
 KERNEL_SHAPES = [(8, 240, 240, 160), (16, 240, 240, 155), (3, 15, 13, 11), (2, 8, 520, 300)]
-# bf16 tensor-core products per Gauss product: bf16x3 (hi.hi + hi.lo + lo.hi)
-# for ``plane``, one for ``plane_fast``
-TIER_PRODUCTS = {"plane": 3, "plane_fast": 1}
-TIER_PEAK = {"plane": "bf16x3 tensor core", "plane_fast": "bf16 tensor core"}
 GRAD_REPEATS = 3
 # kernel vs a complex128 torch.fft version, at most this multiple of the
 # plain version's error (both tiers)
@@ -322,19 +291,12 @@ AXIS_TOL = {"highest": 1e-5, "high": 5e-5, "default": 2e-2}
 STYLIZE_TOL = AXIS_TOL["high"]
 # the tier the dft_pallas path runs, as the JAX package does (Precision.HIGH)
 PATH_TIER = "high"
-# bf16 tensor-core products per product of the body, per tier (None: float32
-# on CUDA cores)
-AXIS_PRODUCTS = {"highest": None, "high": 3, "default": 1}
 # (N, H, W, D) volumes whose axis-kernel views are checked: B*C of the train
 # and bench batches, and an odd one
 AXIS_SHAPES = {"train": (8, 128, 128, 64), "bench": (16, 240, 240, 155),
                "odd": (3, 7, 13, 11)}
 # kernel launches of one dft_pallas stylize call
 LAUNCHES_PER_STEP = {"r2c": 1, "c2c": 4, "c2r": 1}
-# the TPU kernel each axis body replaces
-AXIS_REPLACES = {"r2c": "mvtb_tpu/ops/pallas_dft.py:116",
-                 "c2c": "mvtb_tpu/ops/pallas_dft.py:101",
-                 "c2r": "mvtb_tpu/ops/pallas_dft.py:127"}
 # the runner phase: the registry's T1 training template at full width, cut
 # in depth only (epochs, steps, pool, held-out batches; the fast profile's
 # held-out batches hold 16 volumes)
@@ -347,13 +309,6 @@ RUNNER_VAL_BATCHES = {"default": 2, "fast": 1}
 POINTWISE_SHAPES = {"volume": (4, 240, 240, 155), "odd": (3, 7, 13, 11), "ragged": (1001,)}
 SAP_P = (0.0, 0.05, 0.4)
 POLAR_TOL = 1e-6  # elementwise relative
-POINTWISE_REPLACES = {"sap": "mvtb_tpu/ops/pallas_kernels.py:39",
-                      "polar": "mvtb_tpu/ops/pallas_kernels.py:53"}
-# operations per element counted for the bound, all at the float32
-# CUDA-core rate: sap = 10 Philox rounds of 10 integer operations per 4
-# elements + the select; polar = the 12 operations of its formula
-POINTWISE_OPS = {"sap": 25 + 5, "polar": 12}
-POINTWISE_BYTES = {"sap": 8, "polar": 16}
 # the per-volume corruption path: one dict volume at full size, and the
 # card-vs-CPU reference size
 PIPELINE_SHAPE = (4, 240, 240, 155)
@@ -417,15 +372,12 @@ LEARN_GRAD_TOL, LEARN_STYL_TOL = 1e-4, 1e-6
 # ~12 s a 4x240x240x155 volume on one host core)
 NIFTI_N, NIFTI_SPATIAL = 10, (240, 240, 155)
 NIFTI_TREE = (
-    "import sys, time\n"
+    "import sys\n"
     "from mvtb_tpu_torch.data import build_decathlon_tree, read_nifti, write_nifti\n"
-    "t = time.perf_counter()\n"
     "task = build_decathlon_tree(sys.argv[1], n={n}, channels=4, spatial={sp}, kind='smooth',\n"
     "                            gzip_files=False)\n"
-    "tree_s = time.perf_counter() - t\n"
     "img, aff = read_nifti(task + '/imagesTr/synth_000.nii', prefer_native=False)\n"
-    "write_nifti(task + '/gz_check.nii.gz', img[..., 0], aff)\n"
-    "print(tree_s, time.perf_counter() - t - tree_s)\n")
+    "write_nifti(task + '/gz_check.nii.gz', img[..., 0], aff)\n")
 
 
 def out(obj) -> None:
@@ -474,46 +426,26 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1, host: bool = False):
-    """Mean device ms per call over ``iters`` back-to-back calls; with
-    ``host``, also the host's ms per call to issue them (where it reaches
-    the device time, the calls were host-bound and the device time is an
-    upper bound of the kernel's)."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    return (ms, host_ms) if host else ms
+def launch_counts() -> tuple:
+    """A reading of the hand-written kernels' launch counters (the
+    ``launch.*`` counters of ``mvtb_tpu_torch/utils/profiling.py``), for
+    :func:`launched_since`."""
+    from mvtb_tpu_torch.examples._common import kernel_launches
+    from mvtb_tpu_torch.utils import profiling
+
+    return kernel_launches(), profiling.counters.copy()
 
 
-def graph_ms(fn, iters: int, replays: int = 3) -> float:
-    """Mean device ms per call of ``iters`` calls captured in one CUDA graph
-    and replayed: the device time alone, without the host's time to issue
-    each call (which ``cuda_ms`` includes where the calls are host-bound)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up outside the capture
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * iters)
+def launched_since(before: tuple) -> tuple:
+    """(launches, by_route_tier) since the reading ``before``: each
+    hand-written kernel's launches under ``kernel_launches``'s keys
+    (``fused_plane``, ``axis_dft_<body>``, ``sap``, ``polar``), and the axis
+    kernels' that moved, by ``"<body> <route> <precision>"``."""
+    now = launch_counts()
+    launches = {k: v - before[0][k] for k, v in now[0].items()}
+    tiers = {" ".join(k.split(".")[2:]): n for k, n in (now[1] - before[1]).items()
+             if k.startswith("launch.axis_dft.") and k.count(".") == 4}
+    return launches, tiers
 
 
 def plane_case(cfg, shape, dev, seed):
@@ -530,24 +462,15 @@ def plane_case(cfg, shape, dev, seed):
     return (k_re, k_im, (H, W, D), flags, *params)
 
 
-def plane_bound(shape, backend):
-    """(flops, bytes, bound ms, bound_by) of one plane-kernel call: the four
-    Gauss contractions (12*W*D*(W+D) flops a plane) times the tier's
-    tensor-core products at the bf16 rate; each input, matrix and output
-    byte once (the matrices as the tier reads them, 2 bytes a bf16 part)."""
-    N, H, W, D = shape
-    Hh = H // 2 + 1
-    flops = 12.0 * W * D * (W + D) * N * Hh * TIER_PRODUCTS[backend]
-    parts = 2 if backend == "plane" else 1
-    nbytes = 4.0 * 4 * N * Hh * W * D + 2.0 * parts * (6 * W * W + 6 * D * D) + 4.0 * 9 * N
-    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BPS
-    return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def kernel_phase(dev) -> dict:
+    """The plane kernel against its plain version at every shape, tier and
+    stage combination; under the bench stack at the eval slice's and the
+    bench batch's planes, each tier's kernel against the complex128
+    ``plane_stylize_half_exact`` (at most EXACT_RATIO x its plain
+    version's error)."""
     from mvtb_tpu_torch.ops import fused, fused_plane
 
-    worst = {}
+    worst, exact = {}, {}
     for shape in KERNEL_SHAPES:
         for backend in ("plane", "plane_fast"):
             fast = backend == "plane_fast"
@@ -564,7 +487,26 @@ def kernel_phase(dev) -> dict:
                       f"kernel vs plain {shape} {backend} {kw}: {err:.3e} > {TOL[backend]}")
                 key = f"{backend} {shape}"
                 worst[key] = max(worst.get(key, 0.0), err)
-    return worst
+    for name, (B, C, H, W, D) in (("slice", SLICE_SHAPE), ("bench", BENCH_SHAPE)):
+        shape = (B * C, H, W, D)
+        for backend in ("plane", "plane_fast"):
+            fast = backend == "plane_fast"
+            cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend=backend)
+            args = plane_case(cfg, shape, dev, seed=3)
+            got = fused_plane.plane_stylize_half(*args, fast=fast)
+            ref = fused_plane.plane_stylize_half_plain(*args, fast=fast)
+            yard = fused_plane.plane_stylize_half_exact(*args)
+            kernel_f64 = max(rel_err(a.double(), b) for a, b in zip(got, yard))
+            plain_f64 = max(rel_err(a.double(), b) for a, b in zip(ref, yard))
+            # the kernel is as accurate as the plain version of its tier
+            check(kernel_f64 <= EXACT_RATIO * plain_f64,
+                  f"{backend} {name}: kernel vs float64 {kernel_f64:.3e}, "
+                  f"plain vs float64 {plain_f64:.3e}")
+            exact[f"{backend} {name}"] = {"kernel": kernel_f64, "plain": plain_f64}
+            del got, ref, yard, args
+        torch.cuda.empty_cache()
+    return {"max_rel_err": worst, "tolerance": TOL, "vs_float64": exact,
+            "exact_ratio": EXACT_RATIO}
 
 
 def slice_phase(dev) -> dict:
@@ -607,11 +549,11 @@ def slice_phase(dev) -> dict:
 
     fused_plane.plane_stylize_half_plain = watched_plain
     try:
-        fused_plane.plane_stylize_half.launches = 0
+        before = launch_counts()
         dice, logits = seg_eval_step(model, image, label, cfg, generator=g,
                                      device=dev, return_logits=True)
         torch.cuda.synchronize()
-        launches = fused_plane.plane_stylize_half.launches
+        launches = launched_since(before)[0]["fused_plane"]
     finally:
         fused_plane.plane_stylize_half_plain = plain
     check(launches > 0, "the main path never launched the plane kernel")
@@ -619,93 +561,27 @@ def slice_phase(dev) -> dict:
     check(tuple(dice.shape) == (2, 3), f"dice shape {tuple(dice.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     check(tuple(logits.shape) == (2, 3) + SLICE_SHAPE[2:], "logits shape")
-
-    step_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        seg_eval_step(model, image, label, cfg, generator=g, device=dev)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    # the step's two halves on their own, device time
-    with torch.no_grad():
-        stylize_ms = cuda_ms(lambda: fused.stylize_batch(
-            image, cfg, generator=g, device=dev), 3)
-        unet_ms = cuda_ms(lambda: model(image), 3)
     return {"unet_params": n_params, "small_ref_logits_rel_err": small_err,
-            "stylize_batch_ms": stylize_ms, "unet_forward_ms": unet_ms,
-            "launches": launches, "dice": dice.cpu().tolist(),
-            "eval_step_ms": [s * 1e3 for s in step_s],
-            "eval_step_ms_median": statistics.median(step_s) * 1e3}
-
-
-def timing_phase(dev) -> dict:
-    from mvtb_tpu_torch.ops import fused, fused_plane
-
-    res = {}
-    for name, (B, C, H, W, D) in (("slice", SLICE_SHAPE), ("bench", BENCH_SHAPE)):
-        shape = (B * C, H, W, D)
-        for backend in ("plane", "plane_fast"):
-            fast = backend == "plane_fast"
-            flops, nbytes, bound_ms, bound_by = plane_bound(shape, backend)
-            cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend=backend)
-            args = plane_case(cfg, shape, dev, seed=3)
-            got = fused_plane.plane_stylize_half(*args, fast=fast)
-            ref = fused_plane.plane_stylize_half_plain(*args, fast=fast)
-            torch.cuda.synchronize()
-            abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-            rel = max(rel_err(a, b) for a, b in zip(got, ref))
-            exact = fused_plane.plane_stylize_half_exact(*args)
-            kernel_f64 = max(rel_err(a.double(), b) for a, b in zip(got, exact))
-            plain_f64 = max(rel_err(a.double(), b) for a, b in zip(ref, exact))
-            # the kernel is as accurate as the plain version of its tier
-            check(kernel_f64 <= EXACT_RATIO * plain_f64,
-                  f"{backend} {name}: kernel vs float64 {kernel_f64:.3e}, "
-                  f"plain vs float64 {plain_f64:.3e}")
-            del got, ref, exact
-            kc = torch.complex(args[0], args[1])
-            ms = cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=fast), 10)
-            res[f"{backend} {name}"] = {
-                "shape": list(shape), "ms": ms,
-                "plain_ms": cuda_ms(lambda: fused_plane.plane_stylize_half_plain(*args, fast=fast), 5),
-                "library_ms_fft2_ifft2_transform_only": cuda_ms(
-                    lambda: torch.fft.ifft2(torch.fft.fft2(kc)), 10),
-                "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
-                "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": TIER_PEAK[backend],
-                # tensor-core flops of the tier (3 products a Gauss product for bf16x3)
-                "achieved_tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
-                "max_abs_err": abs_err, "max_rel_err": rel,
-                "kernel_vs_float64_rel_err": kernel_f64, "plain_vs_float64_rel_err": plain_f64}
-            del kc, args
-        torch.cuda.empty_cache()
-    g = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn(BENCH_SHAPE, generator=g, device=dev)
-    for backend in ("plane", "plane_fast", "dft_pallas"):
-        cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend=backend)
-        ms = cuda_ms(lambda: fused.stylize_batch(x, cfg, generator=g, device=dev), 5)
-        res[f"stylize_batch {backend} bench"] = {"ms": ms, "vol_per_s": BENCH_SHAPE[0] / ms * 1e3}
-    return res
+            "launches": launches, "dice": dice.cpu().tolist()}
 
 
 def axis_views(shape):
     """Every axis-kernel launch of one ``dft_pallas`` stylize call on a
-    (N, H, W, D) volume (``on_path`` True, in the order the path makes
-    them), and one view of each orientation that only ``dft_nd``,
-    ``idft_nd`` or ``idft_nd_real`` use. Each entry: (on_path, label, body,
-    lane, view, matrix kind, n, inverse)."""
+    (N, H, W, D) volume, in the order the path makes them, then one view of
+    each orientation that only ``dft_nd``, ``idft_nd`` or ``idft_nd_real``
+    use. Each entry: (label, body, lane, view, matrix kind, n, inverse)."""
     N, H, W, D = shape
     h = D // 2 + 1
     M = N * H * W
-    path = [("r2c lane D", "r2c", True, (M, D), "half", D, False),
+    return [("r2c lane D", "r2c", True, (M, D), "half", D, False),
             ("c2c sub H fwd", "c2c", False, (N, H, W * h), "gauss", H, False),
             ("c2c sub W fwd", "c2c", False, (N * H, W, h), "gauss", W, False),
             ("c2c sub H inv", "c2c", False, (N, H, W * h), "gauss", H, True),
             ("c2c sub W inv", "c2c", False, (N * H, W, h), "gauss", W, True),
-            ("c2r lane D", "c2r", True, (M, h), "half_inv", D, True)]
-    other = [("r2c sub W", "r2c", False, (N * H, W, D), "full", W, False),
-             ("c2c lane D", "c2c", True, (M, D), "gauss", D, False),
-             ("c2r sub W", "c2r", False, (N * H, W, h), "full", W, True)]
-    return [(True,) + v for v in path] + [(False,) + v for v in other]
+            ("c2r lane D", "c2r", True, (M, h), "half_inv", D, True),
+            ("r2c sub W", "r2c", False, (N * H, W, D), "full", W, False),
+            ("c2c lane D", "c2c", True, (M, D), "gauss", D, False),
+            ("c2r sub W", "c2r", False, (N * H, W, h), "full", W, True)]
 
 
 def axis_case(body, view, kind, n, inverse, dev, seed):
@@ -716,45 +592,6 @@ def axis_case(body, view, kind, n, inverse, dev, seed):
     ins = [torch.randn(view, generator=g, device=dev)
            for _ in range(pallas_dft.ARITY[body][0])]
     return ins, mats
-
-
-def axis_bound(body, lane, view, mats, precision):
-    """(flops, bytes, bound ms, bound_by) of one axis-kernel call: each
-    input and matrix read once, each output written once; 2 operations per
-    multiply-add over every product of the body, at the float32 CUDA-core
-    rate for ``highest``, else at the bf16 tensor-core rate with three bf16
-    products a product for bf16x3 (``high``)."""
-    from mvtb_tpu_torch.ops import pallas_dft
-
-    n_data, n_mats, n_outs = pallas_dft.ARITY[body]
-    n_in, n_out = mats[0].shape
-    rows = view[0] if lane else view[0] * view[2]
-    flops = 2.0 * n_mats * rows * n_in * n_out
-    nbytes = 4.0 * (n_data * rows * n_in + n_mats * n_in * n_out + n_outs * rows * n_out)
-    products = AXIS_PRODUCTS[precision]
-    if products is None:
-        t_ops = flops / F32_FLOPS
-    else:
-        flops *= products
-        t_ops = flops / BF16_FLOPS
-    t_bytes = nbytes / HBM_BPS
-    return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
-def axis_library(body, lane, ins, n, inverse):
-    """The one ``torch.fft`` call that computes the same transform as an
-    axis-kernel call on the path (timed as a yardstick, never used by the
-    port), or None."""
-    if body == "r2c" and lane:
-        return lambda: torch.fft.rfft(ins[0], dim=-1)
-    if body == "c2r" and lane:
-        z = torch.complex(ins[0], ins[1])
-        return lambda: torch.fft.irfft(z, n=n, dim=-1)
-    if body == "c2c" and not lane:
-        z = torch.complex(ins[0], ins[1])
-        fn = torch.fft.ifft if inverse else torch.fft.fft
-        return lambda: fn(z, dim=1)
-    return None
 
 
 def axis_exact(body, lane, ins, kind, n, inverse):
@@ -793,7 +630,7 @@ def axis_kernel_phase(dev) -> dict:
 
     worst, exact = {}, {}
     for name, shape in AXIS_SHAPES.items():
-        for i, (_, label, body, lane, view, kind, n, inverse) in enumerate(axis_views(shape)):
+        for i, (label, body, lane, view, kind, n, inverse) in enumerate(axis_views(shape)):
             ins, mats = axis_case(body, view, kind, n, inverse, dev, seed=i)
             call = pallas_dft.lane_call if lane else pallas_dft.sub_call
             for precision, tol in AXIS_TOL.items():
@@ -818,45 +655,8 @@ def axis_kernel_phase(dev) -> dict:
                 del got, ref
             del ins
         torch.cuda.empty_cache()
-    return {"max_rel_err": worst, f"vs_complex128_{PATH_TIER}": exact}
-
-
-def axis_timing(dev) -> dict:
-    """Kernel and plain ms with the bound of every path view of the train
-    and bench shapes at every tier; the library call and the abs error
-    beside each, the library timed once a view."""
-    from mvtb_tpu_torch.ops import pallas_dft
-
-    res = {}
-    for name in ("train", "bench"):
-        for i, (on_path, label, body, lane, view, kind, n, inverse) in enumerate(
-                axis_views(AXIS_SHAPES[name])):
-            if not on_path:
-                continue
-            ins, mats = axis_case(body, view, kind, n, inverse, dev, seed=100 + i)
-            call = pallas_dft.lane_call if lane else pallas_dft.sub_call
-            lib = axis_library(body, lane, ins, n, inverse)
-            lib_ms = cuda_ms(lib, 10) if lib is not None else None
-            for precision in AXIS_TOL:
-                got = call(body, ins, mats, precision)
-                ref = pallas_dft.plain(body, lane, ins, mats, precision)
-                torch.cuda.synchronize()
-                abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-                del got, ref
-                flops, nbytes, bound_ms, bound_by = axis_bound(body, lane, view, mats, precision)
-                ms, host_ms = cuda_ms(lambda: call(body, ins, mats, precision), 10, host=True)
-                res[f"{name} {label} {precision}"] = {
-                    "body": body, "view": list(view), "precision": precision,
-                    "route": pallas_dft.route(body, precision), "ms": ms, "host_ms": host_ms,
-                    "graph_ms": graph_ms(lambda: call(body, ins, mats, precision), 10),
-                    "plain_ms": cuda_ms(lambda: pallas_dft.plain(body, lane, ins, mats, precision), 5),
-                    "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
-                    "bytes_bound_ms": nbytes / HBM_BPS * 1e3,
-                    "max_abs_err": abs_err, "library_ms": lib_ms}
-            del ins
-        torch.cuda.empty_cache()
-    return res
+    return {"max_rel_err": worst, "tolerance": AXIS_TOL, f"vs_complex128_{PATH_TIER}": exact,
+            "exact_ratio": EXACT_RATIO}
 
 
 def _norm_fed_biases(model):
@@ -871,9 +671,9 @@ def _norm_fed_biases(model):
 
 def train_phase(dev) -> dict:
     from mvtb_tpu_torch.models import UNet
-    from mvtb_tpu_torch.ops import fused, fused_plane, pallas_dft
-    from mvtb_tpu_torch.train import (create_seg_state, dice_loss, reference_optimizer,
-                                      seg_train_step, train_segmentation)
+    from mvtb_tpu_torch.ops import fused, pallas_dft
+    from mvtb_tpu_torch.train import (create_seg_state, reference_optimizer, seg_train_step,
+                                      train_segmentation)
 
     # (a) small reference: one float32 SGD(1.0) step, card against CPU
     torch.manual_seed(5)
@@ -982,14 +782,6 @@ def train_phase(dev) -> dict:
                 (torch.rand((B, 3) + TRAIN_SHAPE[2:], generator=g, device=dev) < 0.3).float())
                for _ in range(TRAIN_STEPS)]
     before = [p.detach().clone() for p in model.parameters()]
-    stamps = []
-
-    def timed_batches():
-        for b in batches:  # each step bracketed by a synchronize
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            yield b
-
     plain = pallas_dft.plain
     plain_on_card = []
 
@@ -1001,100 +793,42 @@ def train_phase(dev) -> dict:
     pallas_dft.plain = watched_plain
     torch.cuda.reset_peak_memory_stats()
     try:
-        for k in pallas_dft.launches:
-            pallas_dft.launches[k] = 0
-        pallas_dft.tier_launches.clear()
-        fused_plane.plane_stylize_half.launches = 0
-        losses = train_segmentation(state, timed_batches(), TRAIN_STEPS, cfg,
+        reading = launch_counts()
+        losses = train_segmentation(state, iter(batches), TRAIN_STEPS, cfg,
                                     generator=g, device=dev)
         torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        launches = dict(pallas_dft.launches)
-        tier_launches = dict(pallas_dft.tier_launches)
-        plane_launches = fused_plane.plane_stylize_half.launches
+        launches, tiers = launched_since(reading)
     finally:
         pallas_dft.plain = plain
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for body, per_step in LAUNCHES_PER_STEP.items():
-        check(launches[body] == per_step * TRAIN_STEPS,
-              f"{body} launched {launches[body]} times in {TRAIN_STEPS} steps, "
+        n = launches[f"axis_dft_{body}"]
+        check(n == per_step * TRAIN_STEPS,
+              f"{body} launched {n} times in {TRAIN_STEPS} steps, "
               f"expected {per_step * TRAIN_STEPS}")
-        key = (body, pallas_dft.route(body, PATH_TIER), PATH_TIER)
-        check(tier_launches.get(key, 0) == launches[body],
-              f"{body}: {tier_launches} launches by route and tier, expected all {key}")
+        key = f"{body} {pallas_dft.route(body, PATH_TIER)} {PATH_TIER}"
+        check(tiers.get(key, 0) == n,
+              f"{body}: {tiers} launches by route and tier, expected all {key}")
     check(all(pallas_dft.route(b, PATH_TIER) == "wgmma" for b in LAUNCHES_PER_STEP),
           "an axis kernel does not run the tensor-core body on the path")
-    check(plane_launches == 0, "the train path launched the plane kernel")
+    check(launches["fused_plane"] == 0, "the train path launched the plane kernel")
     check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
           f"losses {losses}")
     changed = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
     check(changed > 0, "the train steps left every parameter unchanged")
-    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    del before
-
-    # the step's parts on their own, device time
-    image, label = batches[0]
-    with torch.no_grad():
-        stylize_ms = cuda_ms(lambda: fused.stylize_batch(image, cfg, generator=g, device=dev), 5)
-
-    def fwd_bwd():
-        state.optimizer.zero_grad(set_to_none=True)
-        dice_loss(model(image), label).backward()
-
-    fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
-    opt_ms = cuda_ms(state.optimizer.step, 5)
     return {"small_ref": small_ref,
             "unet_params": n_params, "losses": losses, "launches": launches,
-            "launches_by_route_and_tier": {" ".join(k): v for k, v in tier_launches.items()},
-            "params_changed": changed, "step_ms": step_ms,
-            "step_ms_median_last5": statistics.median(step_ms[1:]),
-            "stylize_batch_ms": stylize_ms, "unet_fwd_bwd_ms": fwd_bwd_ms,
-            "optimizer_step_ms": opt_ms, "peak_memory_gb": peak_gb}
+            "launches_by_route_and_tier": tiers,
+            "params_changed": changed, "peak_memory_gb": peak_gb}
 
 
-def _zero_launch_counts():
-    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels
-
-    fused_plane.plane_stylize_half.launches = 0
-    for counts in (pallas_dft.launches, pallas_kernels.launches):
-        for k in counts:
-            counts[k] = 0
-
-
-def _launch_counts() -> dict:
-    from mvtb_tpu_torch.examples._common import kernel_launches
-
-    return kernel_launches()
-
-
-def _runner_rates(res: dict, batch: int, steps: int) -> dict:
-    """Train vol/s of one chunked run from its host timing (each chunk
-    ends in the loss's host read): over all chunks, over the chunks after
-    the first (which pays first-use costs), and over all chunks and
-    validations."""
-    t = res["timing"]
-    chunk, val = t["chunk_s"], t["val_s"]
-    return {"pool_s": t["pool_s"], "chunk_ms": [c * 1e3 for c in chunk],
-            "val_ms": [v * 1e3 for v in val], "save_ms": [v * 1e3 for v in t["save_s"]],
-            "restore_ms": None if t["restore_s"] is None else t["restore_s"] * 1e3,
-            "ms_per_step_after_first": statistics.median(chunk[1:]) / steps * 1e3,
-            "vol_s_chunks": batch * steps * len(chunk) / sum(chunk),
-            "vol_s_chunks_after_first": batch * steps * (len(chunk) - 1) / sum(chunk[1:]),
-            "vol_s_with_val": batch * steps * len(chunk) / (sum(chunk) + sum(val))}
-
-
-def chunk_probe(tag: str, one_chunk, steps: int) -> dict:
-    """Over single chunks (``one_chunk(epoch)`` returns the tensor the
-    runner reads after it), outside the counted runs: the host reads that
-    ``set_sync_debug_mode`` reports (a read of the result after the chunk is
-    the detector's control), the host's time to issue a chunk against its
-    wall time, and the device's busy time, idle share and top kernels from
-    a ``torch.profiler`` trace."""
+def host_reads(tag: str, one_chunk) -> dict:
+    """The host reads that ``set_sync_debug_mode`` reports over one chunk
+    (``one_chunk(epoch)`` returns the tensor the runner reads after it),
+    outside the counted runs; a read of the result after the chunk is the
+    detector's control, which must be reported."""
     import warnings
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     one_chunk(0)  # warm
     torch.cuda.synchronize()
@@ -1111,25 +845,7 @@ def chunk_probe(tag: str, one_chunk, steps: int) -> dict:
     in_chunk = len([w for w in caught[:n_chunk] if "synchroniz" in str(w.message)])
     check(len(syncs) > in_chunk,
           f"{tag}: set_sync_debug_mode did not report the result's read: {syncs}")
-    t0 = time.perf_counter()
-    result = one_chunk(2)
-    issue_s = time.perf_counter() - t0
-    result.cpu()
-    wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_chunk(3).cpu()
-    # device work only: a user annotation's range (the optimizer step's
-    # record_function) also lands on the device and would count twice
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"host_reads_per_chunk": in_chunk, "steps": steps, "kinds": sorted(set(syncs))[:5],
-            "chunk_issue_ms": issue_s * 1e3, "chunk_wall_ms": wall_s * 1e3,
-            "device_busy_ms": busy_ms or None,
-            "device_idle_share": (1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
-            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                               for e in top]}
+    return {"host_reads_per_chunk": in_chunk, "kinds": sorted(set(syncs))[:5]}
 
 
 def runner_phase(dev) -> dict:
@@ -1152,7 +868,7 @@ def runner_phase(dev) -> dict:
     import tempfile
 
     from mvtb_tpu_torch.experiments import registry, runner
-    from mvtb_tpu_torch.ops import fused, fused_plane
+    from mvtb_tpu_torch.ops import fused_plane
     from mvtb_tpu_torch.train import CheckpointManager, make_chunk_fn
 
     base = registry.get(RUNNER_NAME)
@@ -1172,17 +888,10 @@ def runner_phase(dev) -> dict:
     check(all(bool(torch.isfinite(a).all()) for a in got), "non-finite plane kernel output")
     check(err <= TOL["plane_fast"],
           f"plane_fast kernel vs plain at {shape}: {err:.3e} > {TOL['plane_fast']}")
-    flops, nbytes, bound_ms, bound_by = plane_bound(shape, "plane_fast")
-    kc = torch.complex(args[0], args[1])
     res["plane_fast_kernel"] = {
         "shape": list(shape), "max_rel_err": err,
-        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-        "ms": cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=True), 10),
-        "plain_ms": cuda_ms(lambda: fused_plane.plane_stylize_half_plain(*args, fast=True), 5),
-        "library_ms_fft2_ifft2_transform_only": cuda_ms(
-            lambda: torch.fft.ifft2(torch.fft.fft2(kc)), 10),
-        "bound_ms": bound_ms, "bound_by": bound_by}
-    del got, ref, args, kc
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref))}
+    del got, ref, args
 
     plain = fused_plane.plane_stylize_half_plain
     plain_on_card = []
@@ -1193,13 +902,13 @@ def runner_phase(dev) -> dict:
         return plain(k_re, *a, **kw)
 
     def drive(tmp, tag, **kw):
-        """One run on the path, its launches counted from zero."""
-        _zero_launch_counts()
+        """One run on the path, with the launches it made."""
+        reading = launch_counts()
         out = runner.run(RUNNER_NAME, chunked=True, epochs=kw.pop("epochs", RUNNER_EPOCHS),
                          steps_per_epoch=RUNNER_STEPS, pool=RUNNER_POOL,
                          workdir=f"{tmp}/{tag}", verbose=False, device=dev, **kw)
         torch.cuda.synchronize()
-        out["launches"] = _launch_counts()
+        out["launches"] = launched_since(reading)[0]
         h = out["history"]
         check(all(math.isfinite(v) for v in h["loss"]), f"{tag}: losses {h['loss']}")
         check(all(math.isfinite(v) for d in h["dice"] for v in [d["mean"], *d["per_class"]]),
@@ -1218,8 +927,7 @@ def runner_phase(dev) -> dict:
             kept = CheckpointManager(f"{tmp}/default/ckpt").all_steps()
             check(kept == a["history"]["epochs"], f"checkpoints kept {kept}")
             res["default"] = {"losses": a["history"]["loss"], "dice": a["history"]["dice"],
-                              "launches": a["launches"], "checkpoints": kept,
-                              **_runner_rates(a, base.batch_size, RUNNER_STEPS)}
+                              "launches": a["launches"], "checkpoints": kept}
 
             # (b) the fast profile: the plane kernel on every stylize
             b = drive(tmp, "fast", fast=True, val_batches=RUNNER_VAL_BATCHES["fast"])
@@ -1229,8 +937,7 @@ def runner_phase(dev) -> dict:
                   f"fast profile: {b['launches']} launches, expected {want} of the plane kernel")
             check(sum(b["launches"].values()) == want, f"other kernels launched: {b['launches']}")
             res["fast"] = {"losses": b["history"]["loss"], "dice": b["history"]["dice"],
-                           "launches": b["launches"],
-                           **_runner_rates(b, fast.batch_size, RUNNER_STEPS)}
+                           "launches": b["launches"]}
         finally:
             fused_plane.plane_stylize_half_plain = plain
         check(not plain_on_card, f"plain version ran on the card: {plain_on_card}")
@@ -1260,13 +967,10 @@ def runner_phase(dev) -> dict:
                          "prefix_vs_uninterrupted": max(abs(x - y) for x, y in zip(
                              h_res["loss"][:2], h_full["loss"][:2])),
                          "tail_loss_max_abs_diff": tail, "tail_dice_max_abs_diff": dice_tail,
-                         "param_max_abs_diff": param_tail,
-                         "restore_ms": resumed["timing"]["restore_s"] * 1e3,
-                         "save_ms": [v * 1e3 for v in full["timing"]["save_s"]]}
+                         "param_max_abs_diff": param_tail}
         del full, part, resumed
 
         # (d) the CLI, as a user runs it
-        t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "mvtb_tpu_torch.experiments", "run", RUNNER_NAME,
              "--chunked", "--epochs", "2", "--steps", "4", "--pool", str(RUNNER_POOL),
@@ -1279,10 +983,9 @@ def runner_phase(dev) -> dict:
         summary = json.loads(lines[0])
         check(set(summary) == {"best_dice", "wall_time_s"} and math.isfinite(summary["best_dice"]),
               f"CLI summary {summary}")
-        res["cli"] = {"summary": summary, "seconds": time.perf_counter() - t0}
+        res["cli"] = {"summary": summary}
 
-    # (e) the host reads, issue and wall time and device busy time over one
-    # chunk of each profile
+    # (e) the host reads over one chunk of each profile
     reads = {}
     for tag, cfg in (("default", base), ("fast", fast)):
         state = runner._seg_state(cfg, 0, dev)
@@ -1294,7 +997,7 @@ def runner_phase(dev) -> dict:
             return chunk_fn(state, runner.epoch_generator(0, epoch, dev), pool_i, pool_l,
                             idxs)[2]
 
-        reads[tag] = chunk_probe(tag, one_chunk, RUNNER_STEPS)
+        reads[tag] = host_reads(tag, one_chunk)
         del state, pool_i, pool_l
     res["sync_debug"] = reads
     torch.cuda.empty_cache()
@@ -1344,7 +1047,7 @@ def pointwise_kernel_phase(dev) -> dict:
     statistics, the p = 0 rule and the seed dependence."""
     from mvtb_tpu_torch.ops import pallas_kernels as pk
 
-    res = {}
+    res = {"polar_tolerance": POLAR_TOL}
     for name, shape in POINTWISE_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(20)
         x = torch.randn(shape, generator=g, device=dev)
@@ -1412,8 +1115,8 @@ def corruption_phase(dev) -> dict:
     """The slice's main path: the per-volume dict pipeline at full size, the
     S&P kernel through its entry point on the same volume, and the three
     magnitude-edit strategies on its spectrum (the second through the polar
-    kernel). Counts are set to 0 just before and read just after."""
-    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels as pk
+    kernel). Launches are read just before and just after."""
+    from mvtb_tpu_torch.ops import pallas_kernels as pk
 
     # small end-to-end reference: the same pipeline and seed on the CPU
     g = torch.Generator().manual_seed(30)
@@ -1442,23 +1145,15 @@ def corruption_phase(dev) -> dict:
     for n in plains:
         setattr(pk, n, watched(n))
     try:
-        for k in pk.launches:
-            pk.launches[k] = 0
-        for k in pallas_dft.launches:
-            pallas_dft.launches[k] = 0
-        fused_plane.plane_stylize_half.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        reading = launch_counts()
         styled = pipe({"image": image})["image"]
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
         sap = pk.salt_and_pepper_pallas(image, 0.05, 7)
         k = torch.fft.fftn(image, dim=(-3, -2, -1))
         tails = {s: pk.magnitude_edit(k, idx, EDIT_LOG_INTENSITY, s)
                  for s in pk.EDIT_STRATEGIES}
         torch.cuda.synchronize()
-        launches = dict(pk.launches)
-        other = dict(pallas_dft.launches, plane=fused_plane.plane_stylize_half.launches)
+        other = launched_since(reading)[0]
+        launches = {n: other.pop(n) for n in ("sap", "polar")}
     finally:
         for n, fn in plains.items():
             setattr(pk, n, fn)
@@ -1475,86 +1170,9 @@ def corruption_phase(dev) -> dict:
     check(max(tail_err.values()) <= EDIT_TOL, f"magnitude-edit strategies disagree: {tail_err}")
     check(all(bool(torch.isfinite(torch.view_as_real(t)).all()) for t in tails.values()),
           "non-finite magnitude-edit output")
-    del styled, sap, tails, ref_tail
-
-    pipe_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe({"image": image})
-        torch.cuda.synchronize()
-        pipe_s.append(time.perf_counter() - t0)
-    # where a pipeline call's time goes: each transform alone, host clock
-    stage_ms, d = {}, {"image": image}
-    for t in pipe.transforms:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        d = t(d)
-        torch.cuda.synchronize()
-        stage_ms[type(t).__name__] = (time.perf_counter() - t0) * 1e3
-    del d
-    edit_ms = {s: cuda_ms(lambda s=s: pk.magnitude_edit(k, idx, EDIT_LOG_INTENSITY, s), 5)
-               for s in pk.EDIT_STRATEGIES}
+    del styled, sap, tails, ref_tail, k
     return {"small_ref_rel_err": small_err, "launches": launches,
-            "sap_entry_point": sap_stats, "edit_rel_err_vs_torch_chain": tail_err,
-            "pipeline_first_ms": first_s * 1e3,
-            "pipeline_ms_per_volume": [s * 1e3 for s in pipe_s],
-            "pipeline_ms_per_volume_median": statistics.median(pipe_s) * 1e3,
-            "pipeline_stage_ms": stage_ms,
-            "edit_ms": edit_ms}
-
-
-def pointwise_bound(name: str, n: int):
-    flops = float(POINTWISE_OPS[name] * n)
-    nbytes = float(POINTWISE_BYTES[name] * n)
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BPS
-    return flops, nbytes, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
-def pointwise_timing(dev) -> dict:
-    """Kernel (wrapper, extrema pass included for sap), plain and composite
-    PyTorch ms at the full volume, with the bound. No single PyTorch call
-    computes either function, so their ``library_ms`` is null; the
-    composite torch version is timed instead (``torch.rand`` + the select;
-    ``torch.polar`` of ``exp(log(|k| + 1e-10))`` and ``angle(k)``)."""
-    from mvtb_tpu_torch.ops import corruptions, pallas_kernels as pk
-
-    shape = POINTWISE_SHAPES["volume"]
-    g = torch.Generator(device=dev).manual_seed(40)
-    x = torch.randn(shape, generator=g, device=dev)
-    n = x.numel()
-    p = torch.tensor(0.05, device=dev)
-
-    def library_sap():
-        mn, mx = torch.aminmax(x)
-        return corruptions.sap_select(x, torch.rand(shape, generator=g, device=dev), p,
-                                      mn / 2, mx / 2)
-
-    res = {}
-    flops, nbytes, bound_ms, bound_by = pointwise_bound("sap", n)
-    res["sap"] = {"shape": list(shape), "max_abs_err": float(
-        (pk.salt_and_pepper_pallas(x, 0.05, 5) - pk.salt_and_pepper_plain(x, 0.05, 5)).abs().max()),
-        "ms": cuda_ms(lambda: pk.salt_and_pepper_pallas(x, 0.05, 5), 20),
-        "extrema_pass_ms": cuda_ms(lambda: torch.aminmax(x), 20),
-        "plain_ms": cuda_ms(lambda: pk.salt_and_pepper_plain(x, 0.05, 5), 3),
-        "composite_torch_ms": cuda_ms(library_sap, 10),
-        "composite_torch": "torch.rand + aminmax + select",
-        "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "bound_ms": bound_ms, "bound_by": bound_by}
-    re, im = polar_inputs(shape, dev, seed=41)
-    kc = torch.complex(re, im)
-    got, ref = pk.polar_roundtrip_pallas(re, im), pk.polar_roundtrip_plain(re, im)
-    flops, nbytes, bound_ms, bound_by = pointwise_bound("polar", n)
-    res["polar"] = {"shape": list(shape),
-                    "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-                    "max_rel_err": max(elementwise_rel(a, b) for a, b in zip(got, ref)),
-                    "ms": cuda_ms(lambda: pk.polar_roundtrip_pallas(re, im), 20),
-                    "plain_ms": cuda_ms(lambda: pk.polar_roundtrip_plain(re, im), 10),
-                    "composite_torch_ms": cuda_ms(lambda: torch.polar(
-                        torch.exp(torch.log(torch.abs(kc) + 1e-10)), torch.angle(kc)), 10),
-                    "composite_torch": "torch.polar(exp(log(abs + 1e-10)), angle)",
-                    "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
-    return res
+            "sap_entry_point": sap_stats, "edit_rel_err_vs_torch_chain": tail_err}
 
 
 # --------------------------------------------------------------------------
@@ -1645,8 +1263,7 @@ def _full_matrix(body: str, mat_shape) -> bool:
 def rest_axis_row(body, lane, view, kind, n, inverse, dev, seed) -> dict:
     """One axis-kernel layout of this slice's paths at ``high``: the kernel
     against its plain version (AXIS_TOL) and against complex128 (at most
-    EXACT_RATIO x the plain version's error), its time beside the plain
-    version's, its bound and the one torch.fft call of the same transform."""
+    EXACT_RATIO x the plain version's error)."""
     from mvtb_tpu_torch.ops import pallas_dft
 
     ins, mats = axis_case(body, view, kind, n, inverse, dev, seed)
@@ -1661,21 +1278,10 @@ def rest_axis_row(body, lane, view, kind, n, inverse, dev, seed) -> dict:
     k_err, p_err = complex_rel_err(got, yard), complex_rel_err(ref, yard)
     check(k_err <= EXACT_RATIO * p_err,
           f"{label}: kernel vs complex128 {k_err:.3e}, plain {p_err:.3e}")
-    dim = -1 if lane else 1
-    z = torch.complex(ins[0], ins[1]) if len(ins) == 2 else ins[0]
-    lib = {("r2c", "half"): lambda: torch.fft.rfft(z, dim=dim),
-           ("r2c", "full"): lambda: torch.fft.fft(z, dim=dim),
-           ("c2c", "gauss"): lambda: (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim),
-           ("c2r", "half_inv"): lambda: torch.fft.irfft(z, n=n, dim=dim),
-           ("c2r", "full"): lambda: torch.fft.ifft(z, dim=dim).real}[(body, kind)]
-    _, _, bound_ms, bound_by = axis_bound(body, lane, view, mats, PATH_TIER)
     row = {"layout": label, "max_rel_err": err,
            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
            "vs_complex128": {"kernel": k_err, "plain": p_err},
-           "chunks": pallas_dft.mat_layout(body, mats[0].shape[1])[1],
-           "ms": cuda_ms(lambda: call(body, ins, mats, PATH_TIER), 10),
-           "plain_ms": cuda_ms(lambda: pallas_dft.plain(body, lane, ins, mats, PATH_TIER), 5),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib, 10)}
+           "chunks": pallas_dft.mat_layout(body, mats[0].shape[1])[1]}
     del ins, got, ref, yard
     return row
 
@@ -1690,10 +1296,10 @@ def fused_rest_phase(dev) -> dict:
     ``high``) and against complex128 transforms (at most EXACT_RATIO x the
     plain version's error), the launches checked by body, route and tier,
     the full-spectrum r2c and c2r among them; then every layout of those
-    paths alone, timed. (b) ``hybrid`` against ``xla`` at 128x128x64 and at
+    paths alone. (b) ``hybrid`` against ``xla`` at 128x128x64 and at
     the non-smooth 240x240x155. (c) the 2D stack on ``dft``, card against
     CPU."""
-    from mvtb_tpu_torch.ops import fused, pallas_dft
+    from mvtb_tpu_torch.ops import fused
 
     res = {"stylize": {}}
     cases = [("2d half", REST_2D_STACK, REST_2D_SHAPE, False),
@@ -1708,19 +1314,17 @@ def fused_rest_phase(dev) -> dict:
                 ctx.enter_context(complex_path())
             draws = fused.sample_draws(cfg, shape[2:], shape[0], shape[1], generator=g,
                                        device="cpu")
-            _zero_launch_counts()
-            pallas_dft.tier_launches.clear()
+            reading = launch_counts()
             with axis_calls() as kc:
                 got = fused.stylize_batch(x, cfg, draws=draws, device=dev)
             torch.cuda.synchronize()
-            launches = dict(pallas_dft.launches)
-            tiers = {" ".join(k): v for k, v in pallas_dft.tier_launches.items()}
+            launches, tiers = launched_since(reading)
             with axis_calls(plain=True):
                 ref = fused.stylize_batch(x, cfg, draws=draws, device=dev)
             with float64_transforms():
                 exact = fused.stylize_batch(x, cfg, draws=draws, device=dev)
-            ms = cuda_ms(lambda: fused.stylize_batch(x, cfg, draws=draws, device=dev), 5)
         nd = len(shape) - 2
+        launches = {b: launches[f"axis_dft_{b}"] for b in LAUNCHES_PER_STEP}
         expect = {"r2c": 1, "c2c": 2 * (nd - 1), "c2r": 1}
         check(launches == expect, f"{name}: launches {launches}, expected {expect}")
         check(set(tiers) == {f"{b} wgmma {PATH_TIER}" for b in expect},
@@ -1736,8 +1340,7 @@ def fused_rest_phase(dev) -> dict:
         res["stylize"][name] = {
             "shape": list(shape), "launches": launches, "by_route_tier": tiers,
             "layouts": sorted({f"{b} {o} {list(v)} mat {list(m)}" for b, o, v, m, _ in kc.log}),
-            "kernels_vs_plain": err, "vs_complex128": {"kernels": k_err, "plain": p_err},
-            "ms": ms}
+            "kernels_vs_plain": err, "vs_complex128": {"kernels": k_err, "plain": p_err}}
         del x, got, ref, exact
 
     # every layout of those paths, alone: 2D half (r2c lane W, c2c sub H,
@@ -1770,10 +1373,7 @@ def fused_rest_phase(dev) -> dict:
                                        draws=draws, device=dev) for b in ("hybrid", "xla")}
         err = rel_err(outs["hybrid"], outs["xla"])
         check(err <= HYBRID_TOL, f"hybrid vs xla at {shape}: {err:.3e}")
-        res["hybrid"][str(list(shape))] = {
-            "rel_err": err, **{f"{b}_ms": cuda_ms(lambda b=b: fused.stylize_batch(
-                x, fused.StylizeConfig(**REST_3D_STACK, fft_backend=b), draws=draws,
-                device=dev), 3) for b in ("hybrid", "xla")}}
+        res["hybrid"][str(list(shape))] = {"rel_err": err}
         del x, outs
     torch.cuda.empty_cache()
 
@@ -1875,21 +1475,6 @@ def _gan_step_card_vs_cpu(kind: str, dev) -> dict:
     return out
 
 
-def _gan_run_summary(res: dict, batch: int) -> dict:
-    t = res["timing"]
-    after = t["chunk_s"][1:]
-    steps = len(res["history"]["g_loss"]) // len(t["chunk_s"])
-    ms = statistics.median(after) / steps * 1e3 if after else None
-    return {"chunk_ms": [c * 1e3 for c in t["chunk_s"]],
-            "ms_per_step_after_first": ms,
-            "steps_per_s_after_first": steps * len(after) / sum(after) if after else None,
-            "slices_per_s_after_first": batch * steps * len(after) / sum(after) if after else None,
-            "pool_s": t["pool_s"], "fid_ms": [f * 1e3 for f in t["fid_s"]],
-            "fid": res["history"].get("fid"), "save_ms": [v * 1e3 for v in t["save_s"]],
-            "restore_ms": None if t["restore_s"] is None else t["restore_s"] * 1e3,
-            "launches": res["launches"]}
-
-
 def gan_phase(dev) -> dict:
     """The GAN family through ``run()`` at the registry's widths (128x128
     slices, batch 4, DCGAN ngf = ndf = 128, ReconGAN nf = 16), cut in depth:
@@ -1900,8 +1485,8 @@ def gan_phase(dev) -> dict:
     ``recon_gan_freq``, ``gibbs_gan`` chunked for 2 epochs of 8 steps; (c)
     one per-step ``dcgan`` epoch; (d) the CLI with ``--mitigated`` in a
     subprocess; (e) one ``dcgan_step`` and one ``recon_gan_step`` (gibbs),
-    card against CPU; (f) per kind, over single chunks, the host reads, the
-    device's idle share and top kernels. No run launches a hand-written
+    card against CPU; (f) per kind, over single chunks, the host reads. No
+    run launches a hand-written
     kernel: the GAN family's stylize runs ``auto`` -> ``dft``
     (``torch.matmul``), as the JAX package's runs ``dft`` on the TPU."""
     import tempfile
@@ -1912,11 +1497,11 @@ def gan_phase(dev) -> dict:
     res = {"widths": {k: registry.get(k).gan_nf for k in GAN_KINDS}}
 
     def drive(tmp, tag, kind, **kw):
-        _zero_launch_counts()
+        reading = launch_counts()
         out = runner.run(kind, steps_per_epoch=GAN_STEPS, workdir=f"{tmp}/{tag}",
                          verbose=False, device=dev, **kw)
         torch.cuda.synchronize()
-        out["launches"] = _launch_counts()
+        out["launches"] = launched_since(reading)[0]
         check(not any(out["launches"].values()),
               f"{tag}: a hand-written kernel was launched: {out['launches']}")
         h = out["history"]
@@ -1932,8 +1517,8 @@ def gan_phase(dev) -> dict:
         check(a["history"]["fid_epochs"] == want and math.isfinite(a["fid"]),
               f"dcgan FID curve {a['history'].get('fid_epochs')} {a.get('fid')}")
         check(CheckpointManager(f"{tmp}/dcgan/ckpt").all_steps() == want, "dcgan checkpoints")
-        res["dcgan"] = {"final_fid": a["fid"],
-                        **_gan_run_summary(a, registry.get("dcgan").batch_size)}
+        res["dcgan"] = {"final_fid": a["fid"], "fid": a["history"].get("fid"),
+                        "launches": a["launches"]}
         del a
         shutil.rmtree(f"{tmp}/dcgan")
 
@@ -1957,9 +1542,7 @@ def gan_phase(dev) -> dict:
         check(tail == 0.0 and fid_tail == 0.0,
               f"the resumed tail differs from the uninterrupted run: {tail}, FID {fid_tail}")
         res["dcgan_resume"] = {"prefix_equal": True, "tail_max_abs_diff": tail,
-                               "fid_max_abs_diff": fid_tail,
-                               "restore_ms": resumed["timing"]["restore_s"] * 1e3,
-                               "save_ms": [v * 1e3 for v in full["timing"]["save_s"]]}
+                               "fid_max_abs_diff": fid_tail}
         del full, part, resumed
         shutil.rmtree(f"{tmp}/part")
 
@@ -1968,18 +1551,16 @@ def gan_phase(dev) -> dict:
             r = drive(tmp, kind, kind, chunked=True, epochs=GAN_EPOCHS[kind],
                       ckpt_every=GAN_CKPT_EVERY)
             check(len(r["history"]["g_loss"]) == GAN_EPOCHS[kind] * GAN_STEPS, f"{kind} curves")
-            res[kind] = _gan_run_summary(r, registry.get(kind).batch_size)
+            res[kind] = {"fid": r["history"].get("fid"), "launches": r["launches"]}
             del r
 
         # (c) one per-step dcgan epoch
-        t0 = time.perf_counter()
         r = drive(tmp, "dcgan_step", "dcgan", epochs=1)
-        res["dcgan_per_step"] = {"seconds": time.perf_counter() - t0, "fid": r["fid"],
-                                 "losses": r["history"]["g_loss"], "launches": r["launches"]}
+        res["dcgan_per_step"] = {"fid": r["fid"], "losses": r["history"]["g_loss"],
+                                 "launches": r["launches"]}
         del r
 
         # (d) the CLI, as a user runs it
-        t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "mvtb_tpu_torch.experiments", "run", "dcgan",
              "--mitigated", "--chunked", "--epochs", "1", "--steps", "4", "--quiet",
@@ -1992,8 +1573,7 @@ def gan_phase(dev) -> dict:
         with open(f"{tmp}/cli/dcgan_mitigated_result.json") as f:
             cli_fid = json.load(f)["fid"]
         check(math.isfinite(cli_fid), f"CLI FID {cli_fid}")
-        res["cli"] = {"summary": json.loads(lines[0]), "fid": cli_fid,
-                      "seconds": time.perf_counter() - t0}
+        res["cli"] = {"summary": json.loads(lines[0]), "fid": cli_fid}
 
     # (e) one step of each step function, card against CPU
     torch.backends.cudnn.deterministic = True
@@ -2019,73 +1599,50 @@ def gan_phase(dev) -> dict:
             return chunk_fn(g_state, d_state, runner.epoch_generator(1, epoch, dev), pool,
                             idxs)[3]
 
-        probes[kind] = chunk_probe(kind, one_chunk, GAN_STEPS)
+        probes[kind] = host_reads(kind, one_chunk)
         del g_state, d_state, pool
         torch.cuda.empty_cache()
-    res["chunk_probe"] = probes
+    res["sync_debug"] = probes
     return res
 
 
 def _domain_run(tag: str, cfg, tmp: str, dev) -> tuple:
-    """One ``run_domain_experiment`` on the card, its launches counted from
-    zero; the host's time to build the hospitals (``domain_loaders``), each
-    train step (host clock around the step, synchronised) and each
-    hospital's evaluation are read through wrappers of the runner's
-    names. Returns (result, record, train steps, evaluation batches)."""
+    """One ``run_domain_experiment`` on the card, with the launches it made;
+    the hospitals it builds are read through a wrapper of the runner's
+    ``domain_loaders``. Returns (result, record, train steps, evaluation
+    batches)."""
     from mvtb_tpu_torch.experiments import runner
     from mvtb_tpu_torch.ops import fused_plane, pallas_dft
 
-    seen, timing = {}, {"step_ms": [], "eval_s": {}}
-    real = (runner.domain_loaders, runner.seg_train_step, runner.ModelEvaluation,
-            fused_plane.plane_stylize_half_plain, pallas_dft.plain)
+    seen = {}
+    real = (runner.domain_loaders, fused_plane.plane_stylize_half_plain, pallas_dft.plain)
     plain_on_card = []
 
     def loaders(**kw):
-        t = time.perf_counter()
         seen["train"], seen["val"] = real[0](**kw)
-        timing["pool_s"] = time.perf_counter() - t
         return seen["train"], seen["val"]
-
-    def step(*a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loss = real[1](*a, **kw)
-        torch.cuda.synchronize()
-        timing["step_ms"].append((time.perf_counter() - t) * 1e3)
-        return loss
-
-    class TimedEvaluation(real[2]):
-        def add_eval(self, name=None, test_loader=None, data_dict=None):
-            t = time.perf_counter()  # ends in the Dice's host reads
-            super().add_eval(name, test_loader, data_dict)
-            timing["eval_s"][name] = time.perf_counter() - t
 
     def watched_plane(k_re, *a, **kw):
         if k_re.is_cuda:
             plain_on_card.append(("fused_plane", tuple(k_re.shape)))
-        return real[3](k_re, *a, **kw)
+        return real[1](k_re, *a, **kw)
 
     def watched_axis(body, lane, ins, *a, **kw):
         if ins[0].is_cuda:
             plain_on_card.append((body, tuple(ins[0].shape)))
-        return real[4](body, lane, ins, *a, **kw)
+        return real[2](body, lane, ins, *a, **kw)
 
-    (runner.domain_loaders, runner.seg_train_step, runner.ModelEvaluation,
-     fused_plane.plane_stylize_half_plain, pallas_dft.plain) = (
-        loaders, step, TimedEvaluation, watched_plane, watched_axis)
-    _zero_launch_counts()
-    pallas_dft.tier_launches.clear()
-    t0 = time.perf_counter()
+    runner.domain_loaders, fused_plane.plane_stylize_half_plain, pallas_dft.plain = (
+        loaders, watched_plane, watched_axis)
+    reading = launch_counts()
     try:
         res = runner.run_domain_experiment(
             cfg, epochs=DOMAIN_EPOCHS, steps_per_epoch=DOMAIN_STEPS, n_per_hospital=DOMAIN_N,
             workdir=f"{tmp}/{tag}", verbose=False, device=dev)
         torch.cuda.synchronize()
     finally:
-        (runner.domain_loaders, runner.seg_train_step, runner.ModelEvaluation,
-         fused_plane.plane_stylize_half_plain, pallas_dft.plain) = real
-    wall_s = time.perf_counter() - t0
-    launches, tiers = _launch_counts(), dict(pallas_dft.tier_launches)
+        runner.domain_loaders, fused_plane.plane_stylize_half_plain, pallas_dft.plain = real
+    launches, tiers = launched_since(reading)
     check(not plain_on_card, f"{tag}: plain version ran on the card: {plain_on_card}")
     steps = DOMAIN_EPOCHS * min(DOMAIN_STEPS, len(seen["train"]))
     batches = sum(len(v) for v in seen["val"].values())
@@ -2102,11 +1659,7 @@ def _domain_run(tag: str, cfg, tmp: str, dev) -> tuple:
                                                       "_gap.json")), f"{tag}: files {files}")
     record = {"config": cfg.name, "batch": cfg.batch_size, "train_steps": steps,
               "eval_batches": batches, "losses": res["losses"], "eval_dict": res["eval_dict"],
-              "gap": res["gap"], "launches": launches,
-              "launches_by_route_and_tier": {" ".join(k): v for k, v in tiers.items()},
-              "pool_s": timing["pool_s"], "step_ms": timing["step_ms"],
-              "ms_per_step_after_first": statistics.median(timing["step_ms"][1:]),
-              "eval_s": timing["eval_s"], "wall_s": wall_s}
+              "gap": res["gap"], "launches": launches, "launches_by_route_and_tier": tiers}
     return res, record, steps, batches
 
 
@@ -2122,19 +1675,18 @@ def domain_phase(dev) -> dict:
     16: one plane-kernel launch per train step and per ``StylizedLoader``
     batch, counted from the loaders) and the same entry with both stylizes
     on ``dft_pallas`` (r2c, c2c, c2r 1, 4, 1 per stylize, all at
-    ``high``); each with finite losses, Dice and gap, its files, ms per
-    step, evaluation seconds per hospital and pool seconds. (b) Card
+    ``high``); each with finite losses, Dice and gap, and its files. (b) Card
     against CPU: one evaluation of the 4 hospitals from the first run's
     weights in float32 under the disk r = 15 on ``plane`` (CPU: its plain
     version), Dice within 1e-3, and one ``StylizedLoader`` batch within the
     tier's 5e-5. (c) Sliding window at TCGA scale (240x240x155, ROI
     128x128x64, overlap 0.25, 27 tiles, full-width 1 -> 1 UNet in bf16):
-    ms and volumes/s for B = 1 constant and gaussian, B = 2, B = 1 per
-    tile; in float32, ``tile_batch`` 1 against 8 within 1e-5 of the max
+    finite for B = 1 constant and gaussian, B = 2, B = 1 per tile; in
+    float32, ``tile_batch`` 1 against 8 within 1e-5 of the max
     and ``low_memory`` both ways equal. (d) The NIfTI path: a 10-volume
     4x240x240x155 Decathlon tree (uncompressed, written by a second process
     while (a)-(c) run), one gzipped volume read by the native and the
-    Python reader (equal arrays), the read and resample ms, and
+    Python reader (equal arrays), one read and resample, and
     ``BratsValIterDataset`` with two named corruptions through
     ``ModelEvaluation(roi_size=(128, 128, 64))`` and a full-width 4 -> 3
     UNet."""
@@ -2196,21 +1748,20 @@ def domain_phase(dev) -> dict:
         sty = fused.StylizeConfig(disk_r=15.0, disk_prob=1.0, fft_backend="plane")
         _, val = domain_loaders(batch_size=auto.batch_size, n_per_hospital=DOMAIN_N, seed=0,
                                 spatial=auto.spatial)
-        scores, seconds = {}, {}
+        scores = {}
         for key, side in (("card", dev), ("cpu", torch.device("cpu"))):
             model = UNet(auto.in_channels, auto.out_channels, auto.channels, auto.strides,
                          auto.num_res_units, device=side).eval()
             model.load_state_dict(weights)
             ev = ModelEvaluation(model, out_channels=1, device=side)
-            _zero_launch_counts()
-            t = time.perf_counter()
+            reading = launch_counts()
             for name, loader in val.items():
                 ev.add_eval(name, StylizedLoader(loader, sty, 0, device=side))
-            seconds[key] = time.perf_counter() - t
             scores[key] = dict(ev.eval_dict)
             if key == "card":
-                check(fused_plane.plane_stylize_half.launches == sum(len(v) for v in val.values()),
-                      f"card evaluation: {fused_plane.plane_stylize_half.launches} plane launches")
+                n = launched_since(reading)[0]["fused_plane"]
+                check(n == sum(len(v) for v in val.values()),
+                      f"card evaluation: {n} plane launches")
         dice_diff = max(abs(scores["card"][k] - scores["cpu"][k]) for k in scores["cpu"])
         check(dice_diff <= DOMAIN_DICE_TOL,
               f"card vs CPU Dice {scores}: {dice_diff:.3e} > {DOMAIN_DICE_TOL}")
@@ -2220,7 +1771,7 @@ def domain_phase(dev) -> dict:
         check(batch_err <= TOL["plane"],
               f"StylizedLoader card vs CPU {batch_err:.3e} > {TOL['plane']}")
         res["card_vs_cpu"] = {"dice": scores, "max_abs_dice_diff": dice_diff,
-                              "tolerance": DOMAIN_DICE_TOL, "eval_s": seconds,
+                              "tolerance": DOMAIN_DICE_TOL,
                               "stylized_batch_max_rel_err": batch_err,
                               "stylized_batch_tolerance": TOL["plane"]}
 
@@ -2241,15 +1792,7 @@ def domain_phase(dev) -> dict:
             y = call()
             check(tuple(y.shape) == (B, 1) + SW_VOLUME and bool(torch.isfinite(y).all()),
                   f"sliding window {tag}: {tuple(y.shape)}")
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                call()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
-            ms = statistics.median(times)
-            sw[tag] = {"ms": ms, "vol_s": B * 1e3 / ms, "B": B, "mode": mode, "tile_batch": tb}
+            sw[tag] = {"B": B, "mode": mode, "tile_batch": tb}
         one, eight = (sliding_window_inference(x[:1], SW_ROI, f32, overlap=SW_OVERLAP,
                                                mode="gaussian", tile_batch=tb, device=dev)
                       for tb in (1, 8))
@@ -2271,31 +1814,20 @@ def domain_phase(dev) -> dict:
         torch.cuda.empty_cache()
 
         # (d) the NIfTI path
-        t = time.perf_counter()
-        stdout, _ = tree.communicate(timeout=600)
+        tree.communicate(timeout=600)
         check(tree.returncode == 0, f"the tree's process exited {tree.returncode}")
-        tree_s, gz_write_s = (float(v) for v in stdout.split())
         root = f"{tmp}/tree"
         task = f"{root}/Task01_BrainTumour"
-        nifti = {"tree_s": tree_s, "tree_wait_s": time.perf_counter() - t,
-                 "gz_write_s": gz_write_s, "native_available": native.available()}
+        nifti = {"native_available": native.available()}
         gz = f"{task}/gz_check.nii.gz"
-        t = time.perf_counter()
         nat, _ = read_nifti(gz)
-        nifti["gz_read_native_ms"] = (time.perf_counter() - t) * 1e3
-        t = time.perf_counter()
         py, _ = read_nifti(gz, prefer_native=False)
-        nifti["gz_read_python_ms"] = (time.perf_counter() - t) * 1e3
         check(nat.shape == NIFTI_SPATIAL and np.array_equal(nat, py),
               "gzipped volume: the native and Python readers differ")
         entry = DecathlonDataset(root, section="validation").entries[0]
-        t = time.perf_counter()
         img, aff = read_nifti(f"{task}/{entry['image']}")
-        nifti["read_ms_per_volume"] = (time.perf_counter() - t) * 1e3
-        t = time.perf_counter()
         resampled, _ = resample_to_spacing(np.ascontiguousarray(np.moveaxis(img, -1, 0)), aff,
                                            (1.5, 1.5, 2.0))
-        nifti["resample_ms_per_volume"] = (time.perf_counter() - t) * 1e3
         nifti["resampled_shape"] = list(resampled.shape)
         del img, resampled, nat, py
         sweep = BratsValIterDataset(root, transforms={
@@ -2304,12 +1836,9 @@ def domain_phase(dev) -> dict:
         torch.manual_seed(4)
         ev = ModelEvaluation(UNet(4, 3, device=dev).eval(), instance_name="nifti_sweep",
                              roi_size=SW_ROI, device=dev)
-        nifti["eval_s"] = {}
         for name, loader in sweep:
             check(len(loader) == 1, f"{name}: {len(loader)} batches, expected the half split's 1")
-            t = time.perf_counter()
             ev.add_eval(name, loader)
-            nifti["eval_s"][name] = time.perf_counter() - t
         table = {k: list(v) for k, v in ev.eval_dict.items()}
         check(list(table) == ["gibbs12p5", "sap0p05"]
               and all(len(v) == 4 and all(math.isfinite(x) for x in v) for v in table.values()),
@@ -2441,14 +1970,11 @@ def learnable_phase(dev) -> dict:
     ``spikes11_layer_GD`` chunked for 3 epochs of 8 steps over a pool of 8,
     a checkpoint every epoch: finite trajectories and losses, no
     hand-written kernel launched (the layers are ``torch.fft``, as the JAX
-    layers are ``jnp.fft``), ms a step and steps/s over the chunks after the
-    first; (c) ``gibbs0p7_layer_GD`` killed after 1 of 2 epochs and resumed,
-    against an uninterrupted run, deterministic cuDNN: the prefix and the
-    trajectory equal; (d) a few per-step steps of ``gibbs0p7_layer_fixed``;
-    (e) over single chunks of each kind, the host reads, the device's idle
-    share and top kernels, and for the joint step the ms a step with TF32
-    on (cuDNN's float32 default) and with the autotuner; (f)
-    ``ModelEvaluation.from_checkpoint`` with ``gibbs_unet`` and
+    layers are ``jnp.fft``); (c) ``gibbs0p7_layer_GD`` killed after 1 of 2
+    epochs and resumed, against an uninterrupted run, deterministic cuDNN:
+    the prefix and the trajectory equal; (d) a few per-step steps of
+    ``gibbs0p7_layer_fixed``; (e) over single chunks of each kind, the host
+    reads; (f) ``ModelEvaluation.from_checkpoint`` with ``gibbs_unet`` and
     ``spikes_unet`` on the runs' checkpoints, scoring one batch."""
     import tempfile
 
@@ -2459,15 +1985,13 @@ def learnable_phase(dev) -> dict:
     cfg0 = registry.get(LEARN_RUNS[0])
     res = {"widths": {"channels": cfg0.channels, "num_res_units": cfg0.num_res_units,
                       "batch": cfg0.batch_size, "spatial": cfg0.spatial}}
-    t0 = time.perf_counter()
     res["card_vs_cpu"] = _learnable_card_vs_cpu(dev)
-    res["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
 
     def drive(tmp, tag, name, **kw):
-        _zero_launch_counts()
+        reading = launch_counts()
         r = runner.run(name, workdir=f"{tmp}/{tag}", verbose=False, device=dev, **kw)
         torch.cuda.synchronize()
-        r["launches"] = _launch_counts()
+        r["launches"] = launched_since(reading)[0]
         check(not any(r["launches"].values()),
               f"{tag}: a hand-written kernel was launched: {r['launches']}")
         check(all(math.isfinite(v) for v in r["trajectory"] + r["losses"]),
@@ -2480,13 +2004,7 @@ def learnable_phase(dev) -> dict:
             r = drive(tmp, name, name, chunked=True, epochs=LEARN_EPOCHS,
                       steps_per_epoch=LEARN_STEPS, pool=LEARN_POOL, ckpt_every=1)
             check(len(r["trajectory"]) == LEARN_EPOCHS * LEARN_STEPS, f"{name} trajectory")
-            t = r["timing"]
-            after = t["chunk_s"][1:]
-            res[name] = {"ms_per_step_after_first": statistics.median(after) / LEARN_STEPS * 1e3,
-                         "steps_per_s_after_first": LEARN_STEPS * len(after) / sum(after),
-                         "chunk_ms": [c * 1e3 for c in t["chunk_s"]], "pool_s": t["pool_s"],
-                         "save_ms": [v * 1e3 for v in t["save_s"]],
-                         "parameters": sum(p.numel() for p in r["state"].model.parameters()),
+            res[name] = {"parameters": sum(p.numel() for p in r["state"].model.parameters()),
                          "trajectory_first_last": [r["trajectory"][0], r["trajectory"][-1]],
                          "losses": r["losses"], "launches": r["launches"]}
             del r
@@ -2508,15 +2026,12 @@ def learnable_phase(dev) -> dict:
               resumed["losses"] == full["losses"],
               f"the resumed run differs from the uninterrupted one: "
               f"{resumed['trajectory']} {full['trajectory']}")
-        res["resume"] = {"prefix_equal": True, "trajectory_equal": True,
-                         "restore_ms": resumed["timing"]["restore_s"] * 1e3}
+        res["resume"] = {"prefix_equal": True, "trajectory_equal": True}
         del full, part, resumed
 
         # (d) per step
-        t0 = time.perf_counter()
         r = drive(tmp, "fixed", LEARN_FIXED, epochs=1, steps_per_epoch=LEARN_FIXED_STEPS)
-        res[LEARN_FIXED] = {"seconds": time.perf_counter() - t0, "trajectory": r["trajectory"],
-                            "losses": r["losses"]}
+        res[LEARN_FIXED] = {"trajectory": r["trajectory"], "losses": r["losses"]}
         del r
 
         # (f) the harness on the runs' checkpoints
@@ -2524,18 +2039,17 @@ def learnable_phase(dev) -> dict:
         img, lbl = next(runner._data_iter(cfg, 5, cfg.batch_size))
         harness = {}
         for flag, name in (("gibbs_unet", LEARN_RUNS[0]), ("spikes_unet", LEARN_RUNS[2])):
-            t0 = time.perf_counter()
             ev = ModelEvaluation.from_checkpoint(f"{tmp}/{name}/ckpt", instance_name=name,
                                                  in_channels=1, out_channels=1, device=dev,
                                                  **{flag: True})
             ev.add_eval("batch", [{"image": img, "label": lbl}])
             dice = float(ev.eval_dict["batch"])
             check(math.isfinite(dice), f"from_checkpoint({flag}): Dice {dice}")
-            harness[flag] = {"dice": dice, "seconds": time.perf_counter() - t0}
+            harness[flag] = {"dice": dice}
             del ev
         res["harness"] = harness
 
-    # (e) over single chunks of each kind: reads, idle share, top kernels
+    # (e) over single chunks of each kind: the host reads
     probes = {}
     for name in LEARN_RUNS:
         cfg = registry.get(name)
@@ -2551,30 +2065,14 @@ def learnable_phase(dev) -> dict:
                                         pool_l, idxs)
             return torch.cat([loss.reshape(1), traj])  # what the runner reads
 
-        p = chunk_probe(name, one_chunk, LEARN_PROBE_STEPS)
+        p = host_reads(name, one_chunk)
         # the chunk itself reads nothing; the runner's one read of its loss
         # and trajectory is the chunk's only host read
         check(p["host_reads_per_chunk"] == 0, f"{name}: host reads inside a chunk: {p}")
-        p["host_reads_per_chunk_with_the_result"] = p["host_reads_per_chunk"] + 1
         probes[name] = p
-        if name == LEARN_RUNS[0]:
-            # (g) the same chunk under cuDNN settings a user may run: its
-            # float32 default (TF32), and the autotuner (TF32 off)
-            timed = {}
-            for tag, tf32, bench in (("tf32", True, False), ("benchmark", False, True)):
-                torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
-                try:
-                    one_chunk(4).cpu()  # warm (and, with the autotuner, tune)
-                    t0 = time.perf_counter()
-                    one_chunk(5).cpu()
-                    timed[tag] = (time.perf_counter() - t0) / LEARN_PROBE_STEPS * 1e3
-                finally:
-                    torch.backends.cudnn.allow_tf32 = False
-                    torch.backends.cudnn.benchmark = False
-            res["grad_ms_per_step_by_cudnn_setting"] = timed
         del state, pool_i, pool_l
         torch.cuda.empty_cache()
-    res["chunk_probe"] = probes
+    res["sync_debug"] = probes
     return res
 
 
@@ -2583,9 +2081,9 @@ def learnable_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # the data-parallel step at world 1 (NCCL): the train phase's batch and
-# stack, the full-width UNet in float32, SGD(1.0); equality steps, launch
-# steps and timed steps (in turns, plain then data-parallel)
-DP_EQUAL_STEPS, DP_LAUNCH_STEPS, DP_TIMED_ROUNDS, DP_TIMED_STEPS = 2, 3, 2, 3
+# stack, the full-width UNet in float32, SGD(1.0); equality steps and launch
+# steps
+DP_EQUAL_STEPS, DP_LAUNCH_STEPS = 2, 3
 # the 2-rank checks (gloo, both ranks on the one card): the bench volume
 # for the H-split stylize, the JAX package's full-volume spatial step
 # (``__graft_entry__.py:170-235``: 240x240x160, UNet 16..256, the disk
@@ -2612,7 +2110,7 @@ def _dp_world1(dev) -> dict:
 
     from mvtb_tpu_torch.models import UNet
     from mvtb_tpu_torch.ops import fused, pallas_dft
-    from mvtb_tpu_torch.parallel import dp, make_mesh, replicate
+    from mvtb_tpu_torch.parallel import make_mesh, replicate
     from mvtb_tpu_torch.train import create_seg_state, seg_train_step
 
     check(not dist.is_initialized(), "a process group is already running")
@@ -2648,47 +2146,26 @@ def _dp_world1(dev) -> dict:
             for (k, p), q in zip(plain.model.named_parameters(), par.model.parameters()):
                 check(torch.equal(p, q), f"world-1 data-parallel step differs at {k}")
             # launches of the data-parallel path alone
-            _zero_launch_counts()
-            pallas_dft.tier_launches.clear()
+            reading = launch_counts()
             for _ in range(DP_LAUNCH_STEPS):
                 seg_train_step(par, *batches[0][:2], cfg, generator=g, device=dev, mesh=mesh)
             torch.cuda.synchronize()
-            launches = _launch_counts()
-            tiers = dict(pallas_dft.tier_launches)
+            launches, tiers = launched_since(reading)
             for body, per_step in LAUNCHES_PER_STEP.items():
                 n = launches[f"axis_dft_{body}"]
                 check(n == per_step * DP_LAUNCH_STEPS,
                       f"data-parallel path: {body} launched {n} times in {DP_LAUNCH_STEPS} steps")
-                key = (body, pallas_dft.route(body, PATH_TIER), PATH_TIER)
+                key = f"{body} {pallas_dft.route(body, PATH_TIER)} {PATH_TIER}"
                 check(tiers.get(key, 0) == n, f"data-parallel path: {body} {tiers}")
             check(not any(v for k, v in launches.items() if not k.startswith("axis_dft")),
                   f"data-parallel path launched another kernel: {launches}")
-            # ms a step, in turns; the gradient all-reduce alone
-            timed = {"plain": state_of(1e-3), "data_parallel": state_of(1e-3)}
-            ms = {k: [] for k in timed}
-            for _ in range(DP_TIMED_ROUNDS):
-                for tag, st in timed.items():
-                    for _ in range(DP_TIMED_STEPS):
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        seg_train_step(st, *batches[0][:2], cfg, generator=g, device=dev,
-                                       mesh=mesh if tag == "data_parallel" else None)
-                        torch.cuda.synchronize()
-                        ms[tag].append((time.perf_counter() - t0) * 1e3)
-            params = list(timed["data_parallel"].model.parameters())
-            allreduce_ms = cuda_ms(lambda: dp.mean_gradients(params, mesh), 10)
         finally:
             torch.backends.cudnn.deterministic = False
     finally:
         dist.destroy_process_group()
     return {"backend": "nccl", "world": 1, "losses_plain_vs_dp": losses,
             "bit_equal_steps": DP_EQUAL_STEPS, "launches": launches,
-            "launches_by_route_and_tier": {" ".join(k): v for k, v in tiers.items()},
-            "launch_steps": DP_LAUNCH_STEPS,
-            "ms_per_step": {k: v for k, v in ms.items()},
-            "ms_per_step_median": {k: statistics.median(v[1:]) for k, v in ms.items()},
-            "grad_allreduce_ms": allreduce_ms,
-            "grad_allreduce_mb": sum(p.numel() for p in params) * 4 / 1e6}
+            "launches_by_route_and_tier": tiers, "launch_steps": DP_LAUNCH_STEPS}
 
 
 def _par_rank_setup(rank: int, world: int, store: str):
@@ -2751,29 +2228,18 @@ def _par_stylize(dev, rank: int, world: int, mesh) -> dict:
     cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
     draws = fused.sample_draws(cfg, (H, W, D), 1, C, generator=g, device="cpu").to(dev)
     block = x[:, rank * h:(rank + 1) * h].contiguous()
-    _zero_launch_counts()
-    ms = []
-    for _ in range(3):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = stylize_kspace_sharded(block, cfg, mesh, draws=draws)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = _launch_counts()
+    reading = launch_counts()
+    got = stylize_kspace_sharded(block, cfg, mesh, draws=draws)
+    torch.cuda.synchronize()
+    launches = launched_since(reading)[0]
     check(not any(launches.values()), f"the H-split stylize launched a kernel: {launches}")
     parts = [torch.empty_like(got) for _ in range(world)]
     dist.all_gather(parts, got.contiguous())
-    res = {"shape": PAR_STYLIZE_SHAPE, "launches": launches, "ms": ms,
-           "ms_median": statistics.median(ms)}
+    res = {"shape": PAR_STYLIZE_SHAPE, "launches": launches}
     if rank == 0:
         backend = shard_backend(cfg, (H, W, D), dev)
         one = dataclasses.replace(cfg, fft_backend=backend)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         want = fused.stylize_kspace(x, one, draws=draws, device=dev)
-        torch.cuda.synchronize()
-        res["one_device_ms"] = (time.perf_counter() - t0) * 1e3
         err = rel_err(torch.cat(parts, dim=1), want)
         check(err <= PAR_STYLIZE_TOL,
               f"H-split stylize vs stylize_kspace ({backend}): {err:.3e} > {PAR_STYLIZE_TOL}")
@@ -2823,13 +2289,8 @@ def _par_spatial(dev, rank: int, world: int, mesh) -> dict:
     state = replicate(mesh, create_seg_state(model, torch.optim.SGD(model.parameters(), lr=1.0),
                                              device=dev))
     torch.cuda.reset_peak_memory_stats()
-    dist.barrier()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     loss = float(spatial_train_step(state, styled[None], lbl[None], mesh, device=dev))
-    torch.cuda.synchronize()
     res = {"volume": PAR_FULL_VOLUME, "loss": loss,
-           "step_ms": (time.perf_counter() - t0) * 1e3,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     parts = [torch.empty_like(styled) for _ in range(world)]
     dist.all_gather(parts, styled.contiguous())
@@ -2840,12 +2301,8 @@ def _par_spatial(dev, rank: int, world: int, mesh) -> dict:
         ref.load_state_dict(start)
         rstate = create_seg_state(ref, torch.optim.SGD(ref.parameters(), lr=1.0), device=dev)
         full = torch.cat(parts, dim=1)[None]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         ref_loss = float(seg_train_step(rstate, full, torch.from_numpy(label)[None].to(dev),
                                         device=dev))
-        torch.cuda.synchronize()
-        res["one_rank_step_ms"] = (time.perf_counter() - t0) * 1e3
         loss_rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-9)
         grad_rel = _grad_rel(after, dict(ref.named_parameters()), start)
         check(loss_rel <= PAR_LOSS_TOL, f"H-split step loss {loss} vs {ref_loss}")
@@ -2858,8 +2315,6 @@ def _par_spatial(dev, rank: int, world: int, mesh) -> dict:
 def _par_tp(dev, rank: int, world: int) -> dict:
     """A (data 1 x model 2) tensor-parallel step of the full-width UNet at
     the train phase's batch against the one-rank step."""
-    import torch.distributed as dist
-
     from mvtb_tpu_torch.models import UNet
     from mvtb_tpu_torch.parallel import gather_params_tp, make_mesh, replicate, shard_state_tp
     from mvtb_tpu_torch.train import create_seg_state, seg_train_step
@@ -2877,21 +2332,12 @@ def _par_tp(dev, rank: int, world: int) -> dict:
         return create_seg_state(m, torch.optim.SGD(m.parameters(), lr=1.0), device=dev)
 
     one = sgd_state()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     ref_loss = float(seg_train_step(one, image, label, device=dev))
-    torch.cuda.synchronize()
-    one_ms = (time.perf_counter() - t0) * 1e3
     ref_after = {k: p.detach().clone() for k, p in one.model.named_parameters()}
     del one
     tp = shard_state_tp(mesh, sgd_state())
     split = sum(len(getattr(m, "tp_split", {})) for m in tp.model.modules())
-    dist.barrier()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     loss = float(seg_train_step(tp, image, label, device=dev, mesh=mesh))
-    torch.cuda.synchronize()
-    tp_ms = (time.perf_counter() - t0) * 1e3
     after = gather_params_tp(mesh, tp.model)
     loss_rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-9)
     grad_rel = _grad_rel(after, ref_after, start)
@@ -2899,8 +2345,7 @@ def _par_tp(dev, rank: int, world: int) -> dict:
     check(loss_rel <= PAR_LOSS_TOL, f"tensor-parallel loss {loss} vs {ref_loss}")
     check(grad_rel <= PAR_GRAD_TOL, f"tensor-parallel gradients: {grad_rel:.3e}")
     return {"mesh": mesh.shape, "split_params": split, "loss": loss, "one_rank_loss": ref_loss,
-            "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "step_ms": tp_ms,
-            "one_rank_step_ms": one_ms}
+            "loss_rel_err": loss_rel, "grad_rel_err": grad_rel}
 
 
 def parallel_rank(job: str, rank: int, world: int, store: str, out_path: str) -> int:
@@ -2967,24 +2412,18 @@ def parallel_phase(dev) -> dict:
     ranks sharing the card, in subprocesses whose exit codes are fatal: the
     collectives probed on CUDA tensors, then the H-split stylize, the
     full-volume H-split train step and a tensor-parallel step, each against
-    its one-rank counterpart. The 2-rank times are correctness runs on one
-    shared card, not scaling numbers."""
+    its one-rank counterpart."""
     import tempfile
 
     res = {"dp_world1": _dp_world1(dev)}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         codes, logs, _ = _run_ranks("send_recv", tmp, fatal=False, timeout=120)
         res["gloo_cuda_send_recv"] = {"exit_codes": codes, "ok": codes == [0] * PAR_WORLD,
                                       "error": next((l.strip().splitlines()[-1] for l in logs
                                                      if "Error" in l), None)}
         _, _, ranks = _run_ranks("checks", tmp, fatal=True)
-        res["two_rank_seconds"] = time.perf_counter() - t0
     res["gloo_cuda_collectives"] = ranks[0]["collectives"]
     res["two_rank"] = {k: ranks[0][k] for k in ("stylize", "spatial", "tensor_parallel")}
-    res["two_rank"]["rank1_ms"] = {"stylize": ranks[1]["stylize"]["ms_median"],
-                                   "spatial_step": ranks[1]["spatial"]["step_ms"],
-                                   "tensor_parallel_step": ranks[1]["tensor_parallel"]["step_ms"]}
     check(ranks[0]["spatial"]["loss"] == ranks[1]["spatial"]["loss"],
           "the H-split step's ranks report different losses")
     return res
@@ -2995,10 +2434,7 @@ def parallel_phase(dev) -> dict:
 # --------------------------------------------------------------------------
 
 SERVE_TOL = 1e-5  # served program against its eager call, of the max
-SERVE_TIMED = 5  # CUDA-event calls per median
 SERVE_SHARDED_SHAPE = (2, 4, 128, 128, 64)
-OP_TURNS, OP_STEPS = 2, 4  # op vs direct launch: rounds in turns, steps a round
-DISPATCH_CALLS = 200
 
 
 def _serve_subprocess(bundle: str, io_dir: str) -> dict:
@@ -3006,38 +2442,26 @@ def _serve_subprocess(bundle: str, io_dir: str) -> dict:
     (no model class) and serve the saved inputs; its results come back
     through ``io_dir``."""
     code = f"""
-import json, statistics, sys, time, torch
+import json, sys, torch
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
-t0 = time.perf_counter()
 from mvtb_tpu_torch.serve import ServingBundle
-from mvtb_tpu_torch.ops import fused_plane
+from mvtb_tpu_torch.utils.profiling import counters
 serve = ServingBundle.load({bundle!r})
-torch.cuda.synchronize()
-load_s = time.perf_counter() - t0
 inp = torch.load({io_dir!r} + "/inputs.pt", map_location="cuda", weights_only=False)
 outs, launches = {{}}, {{}}
 with torch.no_grad():
     for name in ("b2", "b1"):
-        fused_plane.plane_stylize_half.launches = 0
+        before = counters["launch.fused_plane"]
         outs[name] = serve(*inp[name])
         torch.cuda.synchronize()
-        launches[name] = fused_plane.plane_stylize_half.launches
+        launches[name] = counters["launch.fused_plane"] - before
     swapped = ServingBundle.load({bundle!r}, params=inp["params2"])
     outs["b2_params2"] = swapped(*inp["b2"])
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ms = []
-    for _ in range({SERVE_TIMED}):
-        start.record()
-        serve(*inp["b2"])
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
 torch.save({{k: v.cpu() for k, v in outs.items()}}, {io_dir!r} + "/outputs.pt")
 bad = [m for m in sys.modules if m.startswith("mvtb_tpu_torch.models")
        or m.split(".")[0] in ("jax", "flax", "mvtb_tpu")]
-print(json.dumps({{"load_s": load_s, "launches": launches, "served_ms": ms,
-                  "served_ms_median": statistics.median(ms), "models_imported": bad}}))
+print(json.dumps({{"launches": launches, "models_imported": bad}}))
 sys.exit(1 if bad else 0)
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -3072,10 +2496,8 @@ def _served_eval(dev, tmp: str) -> dict:
     x1 = torch.randn((1,) + SLICE_SHAPE[1:], generator=g, device=dev)
     draws1 = fused.sample_draws(cfg, SLICE_SHAPE[2:], 1, C, generator=g, device=dev)
     bundle = os.path.join(tmp, "bundle")
-    t0 = time.perf_counter()
     ServingBundle.save(bundle, eval_fn, params, (x, draws), batch_polymorphic=True,
                        extra_meta={"task": "corrupted-validation inference"})
-    save_s = time.perf_counter() - t0
     torch.save({"b2": (x, draws), "b1": (x1, draws1), "params2": params2},
                os.path.join(tmp, "inputs.pt"))
     sub = _serve_subprocess(bundle, tmp)
@@ -3089,8 +2511,6 @@ def _served_eval(dev, tmp: str) -> dict:
             check(tuple(served[name].shape) == tuple(eager.shape), f"served {name} shape")
             check(errs[name] <= SERVE_TOL, f"served eval {name} vs eager: {errs[name]:.3e}")
             del eager
-        eager_ms = [cuda_ms(lambda: eval_fn(params, x, draws), 1, warmup=0)
-                    for _ in range(SERVE_TIMED)]
     check(sub["launches"] == {"b2": 1, "b1": 1},
           f"the served eval program launched the plane kernel {sub['launches']} times a call")
     check(not torch.equal(served["b2"], served["b2_params2"]), "swapped params, same output")
@@ -3101,17 +2521,14 @@ def _served_eval(dev, tmp: str) -> dict:
              (("program_bytes", ServingBundle.PROGRAM), ("params_bytes", ServingBundle.PARAMS))}
     check(sizes["program_bytes"] < sizes["params_bytes"],
           f"the program file holds more than the weights: {sizes}")
-    return {"export_s": meta["export_s"], "save_s": save_s - meta["export_s"], **sub,
-            "rel_err_vs_eager": errs, "eager_ms": eager_ms,
-            "eager_ms_median": statistics.median(eager_ms), **sizes,
-            "inputs": meta["inputs"]}
+    return {**sub, "rel_err_vs_eager": errs, **sizes, "inputs": meta["inputs"]}
 
 
 def _served_stylize(dev) -> dict:
     """``stylize_batch`` on ``dft_pallas`` at the bench shape, exported on the
     card and served: r2c, c2c, c2r launched 1, 4, 1 times a call at ``high``
     on the tensor-core body."""
-    from mvtb_tpu_torch.ops import fused, pallas_dft
+    from mvtb_tpu_torch.ops import fused
     from mvtb_tpu_torch.serve import export_fn, load_fn
 
     cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
@@ -3123,30 +2540,23 @@ def _served_stylize(dev) -> dict:
     def styl(img, d):
         return fused.stylize_batch(img, cfg, d, device=img.device)
 
-    t0 = time.perf_counter()
     served = load_fn(export_fn(styl, (x, draws)), device=dev)
-    export_load_s = time.perf_counter() - t0
     with torch.no_grad():
-        _zero_launch_counts()
-        pallas_dft.tier_launches.clear()
+        reading = launch_counts()
         out = served(x, draws)
         torch.cuda.synchronize()
-        launches, tiers = _launch_counts(), dict(pallas_dft.tier_launches)
+        launches, tiers = launched_since(reading)
         eager = styl(x, draws)
         err = rel_err(out, eager)
-        served_ms = cuda_ms(lambda: served(x, draws), SERVE_TIMED)
-        eager_ms = cuda_ms(lambda: styl(x, draws), SERVE_TIMED)
     check(err <= STYLIZE_TOL, f"served stylize vs eager: {err:.3e} > {STYLIZE_TOL}")
     for body, n in LAUNCHES_PER_STEP.items():
         check(launches[f"axis_dft_{body}"] == n, f"served stylize: {body} {launches}")
-        key = (body, "wgmma", PATH_TIER)
+        key = f"{body} wgmma {PATH_TIER}"
         check(tiers.get(key, 0) == n, f"served stylize: {body} {tiers}")
     check(not any(v for k, v in launches.items() if not k.startswith("axis_dft")),
           f"served stylize launched another kernel: {launches}")
     return {"bit_equal_to_eager": bool(torch.equal(out, eager)), "rel_err_vs_eager": err,
-            "launches": launches,
-            "launches_by_route_and_tier": {" ".join(k): v for k, v in tiers.items()},
-            "export_and_load_s": export_load_s, "served_ms": served_ms, "eager_ms": eager_ms}
+            "launches": launches, "launches_by_route_and_tier": tiers}
 
 
 def _served_pointwise(dev) -> dict:
@@ -3167,10 +2577,10 @@ def _served_pointwise(dev) -> dict:
     x = torch.randn(shape, generator=g, device=dev)
     re, im = polar_inputs(shape, dev, seed=44)
     p, seed = torch.tensor(0.05, device=dev), torch.tensor(1234, device=dev)
-    _zero_launch_counts()
+    reading = launch_counts()
     out = served(x, p, seed, re, im)
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches = launched_since(reading)[0]
     sap_equal = torch.equal(out[0], pk.salt_and_pepper_plain(x, 0.05, 1234))
     polar_err = max(elementwise_rel(a, b) for a, b in
                     zip(out[1:], pk.polar_roundtrip_plain(re, im)))
@@ -3215,59 +2625,6 @@ def _served_sharded(dev) -> dict:
         dist.destroy_process_group()
 
 
-def _op_overhead(dev) -> dict:
-    """What the custom-op wrapping costs: the train step and ``stylize_batch``
-    on ``dft_pallas`` with the axis kernels reached through ``mvtb::axis_dft``
-    against the same launches called directly (the wrappers before the ops),
-    in turns; and the host's time per call of one small axis kernel."""
-    from mvtb_tpu_torch.models import UNet
-    from mvtb_tpu_torch.ops import _ops, fused, pallas_dft
-    from mvtb_tpu_torch.train import create_seg_state, reference_optimizer, seg_train_step
-
-    op = _ops.axis_dft
-
-    def direct(body, lane, ins, mats, precision):
-        return list(pallas_dft.launch(body, lane, ins, mats, precision))
-
-    torch.manual_seed(47)
-    model = UNet(4, 3, device=dev, dtype=torch.bfloat16)
-    state = create_seg_state(model, reference_optimizer(model.parameters()), device=dev)
-    cfg = fused.StylizeConfig(**BENCH_STACK, fft_backend="dft_pallas")
-    g = torch.Generator(device=dev).manual_seed(48)
-    B = TRAIN_SHAPE[0]
-    image = torch.randn(TRAIN_SHAPE, generator=g, device=dev)
-    label = (torch.rand((B, 3) + TRAIN_SHAPE[2:], generator=g, device=dev) < 0.3).float()
-    bench = torch.randn(BENCH_SHAPE, generator=g, device=dev)
-    small = [torch.randn(64, 16, device=dev)]
-    small_mats = pallas_dft._dft.device_mats("half", 16, False, dev)
-    res = {k: {"custom_op": [], "direct": []} for k in
-           ("train_step_ms", "stylize_batch_ms", "host_us_per_small_axis_call")}
-    try:
-        for _ in range(OP_TURNS):
-            for mode in ("custom_op", "direct", "direct", "custom_op"):
-                _ops.axis_dft = op if mode == "custom_op" else direct
-                for _ in range(OP_STEPS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    seg_train_step(state, image, label, cfg, generator=g, device=dev)
-                    torch.cuda.synchronize()
-                    res["train_step_ms"][mode].append((time.perf_counter() - t0) * 1e3)
-                with torch.no_grad():
-                    res["stylize_batch_ms"][mode].append(cuda_ms(
-                        lambda: fused.stylize_batch(bench, cfg, generator=g, device=dev), 3))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(DISPATCH_CALLS):
-                    pallas_dft.lane_call("r2c", small, small_mats, PATH_TIER)
-                res["host_us_per_small_axis_call"][mode].append(
-                    (time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
-                torch.cuda.synchronize()
-    finally:
-        _ops.axis_dft = op
-    return {k: {**v, **{f"{m}_median": statistics.median(v[m]) for m in v}}
-            for k, v in res.items()}
-
-
 def serve_phase(dev) -> dict:
     import tempfile
 
@@ -3277,7 +2634,6 @@ def serve_phase(dev) -> dict:
     res["stylize_program"] = _served_stylize(dev)
     res["pointwise_program"] = _served_pointwise(dev)
     res["sharded_world1"] = _served_sharded(dev)
-    res["custom_op_overhead"] = _op_overhead(dev)
     return res
 
 
@@ -3299,7 +2655,7 @@ def compat_phase(dev) -> dict:
     import tempfile
 
     code = f"""
-import json, sys, time, numpy as np, torch
+import json, sys, numpy as np, torch
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.deterministic = True
@@ -3326,7 +2682,6 @@ class ConvertToMultiChannelBasedOnBratsClassesd(MapTransform):
         return d
 
 root = sys.argv[1]
-t0 = time.perf_counter()
 build_decathlon_tree(root, n=2, spatial={COMPAT_SHAPE}, kind="smooth",
                      affine=np.diag([1.5, 1.5, 2.0, 1.0]))
 set_determinism(seed=0)
@@ -3342,7 +2697,6 @@ train_ds = DecathlonDataset(root_dir=root, task="Task01_BrainTumour", transform=
                             section="training", download=False, cache_num=100)
 train_loader = DataLoader(train_ds, batch_size=2, shuffle=True, num_workers=4)
 batch_data = next(iter(train_loader))
-data_s = time.perf_counter() - t0
 
 def run(device, start=None, steps={COMPAT_STEPS}):
     model = UNet(dimensions=3, in_channels=4, out_channels=3, channels=(16, 32, 64, 128, 256),
@@ -3352,9 +2706,8 @@ def run(device, start=None, steps={COMPAT_STEPS}):
     init = {{k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
     loss_function = DiceLoss(to_onehot_y=False, sigmoid=True, squared_pred=True)
     optimizer = torch.optim.Adam(model.parameters(), 1e-4, weight_decay=1e-5, amsgrad=True)
-    losses, grads, ms = [], None, []
+    losses, grads = [], None
     for step in range(steps):
-        t0 = time.perf_counter()
         inputs, labels = (batch_data["image"].to(device), batch_data["label"].to(device))
         optimizer.zero_grad()
         outputs = model(inputs)
@@ -3362,15 +2715,12 @@ def run(device, start=None, steps={COMPAT_STEPS}):
         loss.backward()
         optimizer.step()
         losses.append(loss.item())
-        ms.append((time.perf_counter() - t0) * 1e3)
         if grads is None:
             grads = {{k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}}
-    return init, losses, grads, ms, sum(p.numel() for p in model.parameters())
+    return init, losses, grads, sum(p.numel() for p in model.parameters())
 
-init, losses, grads, ms, n_params = run(torch.device("cuda:0"))
-t0 = time.perf_counter()
-_, cpu_losses, cpu_grads, _, _ = run(torch.device("cpu"), start=init, steps=1)
-cpu_s = time.perf_counter() - t0
+init, losses, grads, n_params = run(torch.device("cuda:0"))
+_, cpu_losses, cpu_grads, _ = run(torch.device("cpu"), start=init, steps=1)
 gmax = max(float(v.abs().max()) for v in cpu_grads.values())
 grad_err = max(float((grads[k] - v).abs().max()) for k, v in cpu_grads.items()) / gmax
 
@@ -3392,10 +2742,10 @@ def Gibbs_GD(inputs, labels, model, h=0.05, learning_rate=0.2):
     return loss_0.item(), model.gibbs.alpha.item()
 
 gd_loss, alpha = Gibbs_GD(inputs, labels, model)
-print(json.dumps({{"unet_params": n_params, "losses": losses, "step_ms": ms,
+print(json.dumps({{"unet_params": n_params, "losses": losses,
                   "cpu_first_loss": cpu_losses[0], "first_loss_diff": abs(losses[0] - cpu_losses[0]),
-                  "first_step_grad_err_over_max": grad_err, "cpu_step_s": cpu_s,
-                  "data_s": data_s, "gibbs_fd": {{"loss": gd_loss, "alpha_before": 0.7,
+                  "first_step_grad_err_over_max": grad_err,
+                  "gibbs_fd": {{"loss": gd_loss, "alpha_before": 0.7,
                   "alpha_after": alpha, "alpha_in_parameters": any(
                       p is model.gibbs.alpha for p in model.parameters())}},
                   "monai_file": sys.modules["monai"].__file__}}))
@@ -3454,15 +2804,15 @@ def studies_phase(dev) -> dict:
     of 4 steps, pools of 16): the plane kernel launched exactly once per
     stylized train step and by nothing else, never its plain version on the
     card, a finite Dice table; one chunk of that training probed for host
-    reads and the device's idle share; (b) the same with
+    reads; (b) the same with
     ``FFT_BACKEND=dft_pallas`` for 2 steps: r2c/c2c/c2r 1/4/1 a step;
     (c) its evaluation on the card against the CPU for (a)'s stylized
     weights in float32 (clean, one disk radius, one wrap alpha): per-class
     Dice within 1e-3; (d) ``cross_corruption_matrix`` on ``FAST=1``, 2
     steps a model with the learnable row: the plane launches of its train
     and eval stylizes, a finite matrix; (e) ``fullvol_probe`` at
-    240x240x160, B = 1 then B = 2: ms a step (CUDA events), peak GB,
-    finite loss; (f) every other script at its smallest useful size,
+    240x240x160, B = 1 then B = 2: a finite loss at B = 1, whether B = 2
+    fits; (f) every other script at its smallest useful size,
     ``full_scale_run`` with its stop-and-resume drill."""
     import dataclasses
     import tempfile
@@ -3494,12 +2844,12 @@ def studies_phase(dev) -> dict:
         try:
             # (a) robustness_gain, FAST=1, disk family
             t0 = time.perf_counter()
-            _zero_launch_counts()
+            reading = launch_counts()
             rg = robustness_gain.run(spatial=STUDY_SPATIAL, steps=STUDY_STEPS,
                                      chunk=STUDY_CHUNK, pool=STUDY_POOL, val_pool=STUDY_VAL,
                                      fast=True, outdir=f"{tmp}/rg_fast", device=dev, log=quiet)
             torch.cuda.synchronize()
-            launches = _launch_counts()
+            launches = launched_since(reading)[0]
             check(launches["fused_plane"] == STUDY_STEPS,
                   f"robustness_gain FAST=1: {launches}, expected {STUDY_STEPS} plane launches "
                   "(one per stylized train step)")
@@ -3507,12 +2857,11 @@ def studies_phase(dev) -> dict:
             check(_finite_table(rg["table"]), f"robustness_gain table {rg['table']}")
             check(rg["batch"] == 16 and rg["fft_backend"] == "plane_fast",
                   f"FAST=1 profile: batch {rg['batch']}, {rg['fft_backend']}")
-            res["robustness_fast"] = {
-                "launches": launches, "table": rg["table"], "effect": rg["effect"],
-                "timing": rg["timing"], "seconds": time.perf_counter() - t0}
+            res["robustness_fast"] = {"launches": launches, "table": rg["table"],
+                                      "effect": rg["effect"]}
             lines.append(_study_line("robustness_gain FAST=1", t0, rg))
 
-            # one chunk of the stylized model's training: host reads, idle share
+            # one chunk of the stylized model's training: the host reads
             styl = rg["models"]["gibbs12.5"]
             state = _common.seg_state(4, 3, 0, dev)
             state.model.load_state_dict(styl.state_dict())
@@ -3526,30 +2875,27 @@ def studies_phase(dev) -> dict:
                 g = torch.Generator(device=dev).manual_seed(epoch)
                 return chunk_fn(state, g, pool_i, pool_l, idxs)[2]
 
-            res["robustness_fast"]["chunk_probe"] = chunk_probe("robustness_gain fast", one_chunk,
-                                                                STUDY_CHUNK)
+            res["robustness_fast"]["sync_debug"] = host_reads("robustness_gain fast", one_chunk)
             del state, pool_i, pool_l, chunk_fn
 
             # (b) FFT_BACKEND=dft_pallas for 2 steps
             t0 = time.perf_counter()
-            _zero_launch_counts()
+            reading = launch_counts()
             rp = robustness_gain.run(spatial=STUDY_SPATIAL, steps=2, chunk=2,
                                      pool=STUDY_SMALL_POOL, val_pool=STUDY_SMALL_POOL,
                                      fft_backend="dft_pallas", outdir=f"{tmp}/rg_pallas",
                                      device=dev, log=quiet)
             torch.cuda.synchronize()
-            launches = _launch_counts()
+            launches = launched_since(reading)[0]
             want = {f"axis_dft_{b}": n * 2 for b, n in LAUNCHES_PER_STEP.items()}
             check({k: launches[k] for k in want} == want and launches["fused_plane"] == 0,
                   f"robustness_gain dft_pallas: {launches}, expected {want}")
             check(_finite_table(rp["table"]), f"robustness_gain dft_pallas table {rp['table']}")
-            res["robustness_dft_pallas"] = {"launches": launches,
-                                            "seconds": time.perf_counter() - t0}
+            res["robustness_dft_pallas"] = {"launches": launches}
             lines.append(_study_line("robustness_gain FFT_BACKEND=dft_pallas", t0, rp))
             del rp
 
             # (c) the evaluation, card against CPU, same float32 weights
-            t0 = time.perf_counter()
             cpu = torch.device("cpu")
             va_i, va_l = robustness_gain.make_pool(9999, STUDY_CPU_VAL, STUDY_SPATIAL)
             sets = {"clean": None, "gibbs12.5": 12.5, "wrap0.5": ("wrap", 0.5)}
@@ -3565,19 +2911,18 @@ def studies_phase(dev) -> dict:
                 tables["card"][k]["per_class"], tables["cpu"][k]["per_class"]))
             check(diff <= STUDY_DICE_TOL, f"robustness_gain eval card vs CPU: {diff:.3e}")
             res["robustness_card_vs_cpu"] = {"max_per_class_dice_diff": diff,
-                                             "card": tables["card"],
-                                             "seconds": time.perf_counter() - t0}
+                                             "card": tables["card"]}
             del rg, styl
 
             # (d) cross_corruption_matrix, FAST=1, 2 steps a model
             t0 = time.perf_counter()
-            _zero_launch_counts()
+            reading = launch_counts()
             cm = cross_corruption_matrix.run(spatial=STUDY_SPATIAL, steps=2, chunk=2,
                                              pool=STUDY_SMALL_POOL,
                                              val_pool=STUDY_SMALL_POOL, fast=True,
                                              outdir=f"{tmp}/cm", device=dev, log=quiet)
             torch.cuda.synchronize()
-            launches = _launch_counts()
+            launches = launched_since(reading)[0]
             train_grid, eval_grid = cross_corruption_matrix.grids(True)
             on_plane = [c is not None and fused_plane.plane_kernel_eligible(c, STUDY_SPATIAL)
                         for c in (*train_grid.values(), *eval_grid.values())]
@@ -3590,8 +2935,7 @@ def studies_phase(dev) -> dict:
                   f"cross_corruption_matrix table {cm['table']}")
             res["cross_corruption_fast"] = {"launches": launches,
                                             "train_stylizes_on_plane": n_train,
-                                            "eval_sets_on_plane": n_eval,
-                                            "seconds": time.perf_counter() - t0}
+                                            "eval_sets_on_plane": n_eval}
             lines.append(_study_line("cross_corruption_matrix FAST=1", t0, cm))
             del cm
         finally:
@@ -3608,8 +2952,7 @@ def studies_phase(dev) -> dict:
             if b == 1:
                 check(att["ok"] and math.isfinite(att["loss"]),
                       f"full-volume step at B = 1: {att}")
-            res["fullvol"][f"b{b}"] = {**att, "seconds": time.perf_counter() - t0,
-                                       "fits": att["ok"]}
+            res["fullvol"][f"b{b}"] = {**att, "fits": att["ok"]}
             lines.append(_study_line(f"fullvol_probe B={b}", t0, fv))
             torch.cuda.empty_cache()
 
@@ -3695,77 +3038,6 @@ def studies_phase(dev) -> dict:
     return res
 
 
-def kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv, st) -> list:
-    """The ``{"kernels": [...]}`` entries: the plane kernel from the eval
-    path, the runner's fast profile, the domain runs' and the served eval
-    program's (timed at the eval slice), each axis kernel from the train
-    path, the fused-rest paths, the domain run on ``dft_pallas``, the
-    data-parallel step and the served stylize (timed at the train shape),
-    the pointwise kernels from the corruption path and the served S&P +
-    polar program; the plane and axis kernels also count the study
-    study scripts' launches."""
-    main_t = tm["plane slice"]
-    domain = dm["runs"]
-    served = sv["eval_program"]["launches"]
-    by_path = {"eval_slice": sl["launches"],
-               "runner_fast": rn["fast"]["launches"]["fused_plane"],
-               "domain_plane_fast": domain["plane_fast"]["launches"]["fused_plane"],
-               "served_eval": sum(served.values()),
-               "studies_robustness_fast": st["robustness_fast"]["launches"]["fused_plane"],
-               "studies_cross_corruption_fast":
-                   st["cross_corruption_fast"]["launches"]["fused_plane"]}
-    kernels = [{
-        "name": "fused_plane", "route": "cuda",
-        "source": "mvtb_tpu_torch/csrc/fused_plane.cu",
-        "replaces": "mvtb_tpu/ops/fused_plane.py:218",
-        "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": main_t["max_abs_err"],
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms_fft2_ifft2_transform_only"]}]
-    # the axis kernels per train step: the sum over the body's launches of
-    # one stylize call at the train shape, in the tier the path runs
-    rest = {body: sum(c["launches"][body] for c in fr["stylize"].values())
-            for body in LAUNCHES_PER_STEP}
-    for body in LAUNCHES_PER_STEP:
-        rows = [r for k, r in ax.items()
-                if k.startswith("train ") and r["body"] == body and r["precision"] == PATH_TIER]
-        check(len(rows) == LAUNCHES_PER_STEP[body], f"{body}: {len(rows)} timed views")
-        worst_row = max(rows, key=lambda r: r["bound_ms"])
-        on_domain = domain["dft_pallas"]["launches"][f"axis_dft_{body}"]
-        on_dp = pl["dp_world1"]["launches"][f"axis_dft_{body}"]
-        on_served = sv["stylize_program"]["launches"][f"axis_dft_{body}"]
-        on_studies = st["robustness_dft_pallas"]["launches"][f"axis_dft_{body}"]
-        kernels.append({
-            "name": f"axis_dft_{body}", "route": "cuda",
-            "source": "mvtb_tpu_torch/csrc/axis_dft.cu",
-            "replaces": AXIS_REPLACES[body],
-            "launches": (tr["launches"][body] + rest[body] + on_domain + on_dp + on_served
-                         + on_studies),
-            "launches_by_path": {"train": tr["launches"][body], "fused_rest": rest[body],
-                                 "domain_dft_pallas": on_domain, "parallel_dp": on_dp,
-                                 "served_stylize": on_served,
-                                 "studies_robustness_dft_pallas": on_studies},
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": worst_row["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in rows)})
-    # the pointwise kernels from the corruption path, timed at its volume
-    for name in ("sap", "polar"):
-        t = pt[name]
-        on_served = sv["pointwise_program"]["launches"][name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": "mvtb_tpu_torch/csrc/pointwise.cu",
-            "replaces": POINTWISE_REPLACES[name],
-            "launches": cp["launches"][name] + on_served,
-            "launches_by_path": {"corruption": cp["launches"][name],
-                                 "served_pointwise": on_served},
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})  # no single PyTorch call: see composite_torch_ms
-    return kernels
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -3793,86 +3065,15 @@ def main() -> int:
             for line in ptxas_lines(name, log.read_text()):
                 out(line)
 
-    t0 = time.perf_counter()
-    worst = kernel_phase(dev)
-    out({"kernel_phase_max_rel_err": worst, "tolerance": TOL,
-         "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    axis_worst = axis_kernel_phase(dev)
-    out({"axis_kernel_phase": axis_worst, "tolerance": AXIS_TOL,
-         "exact_ratio": EXACT_RATIO, "seconds": time.perf_counter() - t0})
+    for phase in (kernel_phase, axis_kernel_phase, slice_phase, train_phase, runner_phase,
+                  pointwise_kernel_phase, corruption_phase, fused_rest_phase, gan_phase,
+                  domain_phase, learnable_phase, parallel_phase, serve_phase, compat_phase,
+                  studies_phase):
+        t0 = time.perf_counter()
+        res = phase(dev)
+        out({phase.__name__: res, "seconds": time.perf_counter() - t0})
 
-    t0 = time.perf_counter()
-    sl = slice_phase(dev)
-    sl["seconds"] = time.perf_counter() - t0
-    out({"slice_phase": sl})
-
-    t0 = time.perf_counter()
-    tr = train_phase(dev)
-    tr["seconds"] = time.perf_counter() - t0
-    out({"train_phase": tr})
-
-    t0 = time.perf_counter()
-    rn = runner_phase(dev)
-    rn["seconds"] = time.perf_counter() - t0
-    out({"runner_phase": rn, "card": smi})
-
-    t0 = time.perf_counter()
-    pw = pointwise_kernel_phase(dev)
-    out({"pointwise_kernel_phase": pw, "polar_tolerance": POLAR_TOL,
-         "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    cp = corruption_phase(dev)
-    cp["seconds"] = time.perf_counter() - t0
-    out({"corruption_phase": cp, "card": smi})
-
-    t0 = time.perf_counter()
-    fr = fused_rest_phase(dev)
-    fr["seconds"] = time.perf_counter() - t0
-    out({"fused_rest_phase": fr, "card": smi})
-    t0 = time.perf_counter()
-    gp = gan_phase(dev)
-    gp["seconds"] = time.perf_counter() - t0
-    out({"gan_phase": gp, "card": smi})
-    t0 = time.perf_counter()
-    dm = domain_phase(dev)
-    dm["seconds"] = time.perf_counter() - t0
-    out({"domain_phase": dm, "card": smi})
-    t0 = time.perf_counter()
-    lp = learnable_phase(dev)
-    lp["seconds"] = time.perf_counter() - t0
-    out({"learnable_phase": lp, "card": smi})
-
-    t0 = time.perf_counter()
-    pl = parallel_phase(dev)
-    pl["seconds"] = time.perf_counter() - t0
-    out({"parallel_phase": pl, "card": smi})
-    t0 = time.perf_counter()
-    sv = serve_phase(dev)
-    sv["seconds"] = time.perf_counter() - t0
-    out({"serve_phase": sv, "card": smi})
-    t0 = time.perf_counter()
-    cm = compat_phase(dev)
-    cm["seconds"] = time.perf_counter() - t0
-    out({"compat_phase": cm, "card": smi})
-    t0 = time.perf_counter()
-    st = studies_phase(dev)
-    st["seconds"] = time.perf_counter() - t0
-    out({"studies_phase": st, "card": smi})
-
-    t0 = time.perf_counter()
-    tm = timing_phase(dev)
-    out({"timing": tm, "card": smi, "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    ax = axis_timing(dev)
-    out({"axis_timing": ax, "card": smi, "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    pt = pointwise_timing(dev)
-    out({"pointwise_timing": pt, "card": smi, "seconds": time.perf_counter() - t0})
-
-    kernels = kernels_line(sl, tr, rn, tm, ax, cp, pt, fr, dm, pl, sv, st)
     out(smi_line())
-    out({"kernels": kernels})
     out({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

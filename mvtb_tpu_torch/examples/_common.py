@@ -132,13 +132,16 @@ class ChunkClock:
 
 
 def kernel_launches() -> dict:
-    """The hand-written kernels' launch counters (each wrapper counts the
-    launches it makes on the card since the process started)."""
-    from mvtb_tpu_torch.ops import fused_plane, pallas_dft, pallas_kernels
+    """The hand-written kernels' launches on the card since the process
+    started, read from the process's ``launch.*`` counters
+    (``utils/profiling.py``); two readings apart give the launches between
+    them."""
+    from mvtb_tpu_torch.ops.pallas_dft import BODIES
+    from mvtb_tpu_torch.utils.profiling import counters
 
-    return {"fused_plane": fused_plane.plane_stylize_half.launches,
-            **{f"axis_dft_{k}": v for k, v in pallas_dft.launches.items()},
-            **pallas_kernels.launches}
+    return {"fused_plane": counters["launch.fused_plane"],
+            **{f"axis_dft_{b}": counters[f"launch.axis_dft.{b}"] for b in BODIES},
+            "sap": counters["launch.sap"], "polar": counters["launch.polar"]}
 
 
 def best_effort_plot(draw: Callable, log: Callable[[str], None] = print):

@@ -109,7 +109,8 @@ def _instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample, per-channel normalisation over space, no affine, its
     variance in two passes, where flax's ``GroupNorm`` takes one
     (``max(0, E[x^2] - E[x]^2)``): the same values up to rounding, and
-    fewer device operations a step (``instance_norm_ab.py``). A spatially
+    fewer device operations a step (4672 against 6072 a ``gibbs_gan`` step
+    on an H100; the A/B's entry in CHANGES.md has the numbers). A spatially
     constant map (a Gibbs-compressed slice whose mask kept nothing is all
     zeros, and so is every map after it) has variance 0:
     ``torch.var_mean``'s backward gives NaN there; this form's gradient,

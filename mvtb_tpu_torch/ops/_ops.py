@@ -5,8 +5,11 @@ namespace, with three implementations:
 
 * CUDA: the ctypes launch of the kernel (``launch`` in its module: the
   argument checks, the allocation of the outputs and any scratch, the
-  launch on the current stream) and its launch counter, so a run of an
-  exported program counts its launches as an eager run does;
+  launch on the current stream) and its count in the process's counters
+  (``utils/profiling.py``: ``launch.fused_plane``, ``launch.sap``,
+  ``launch.polar``, ``launch.axis_dft.<body>`` and
+  ``launch.axis_dft.<body>.<route>.<precision>``), so a run of an exported
+  program counts its launches as an eager run does;
 * CPU: the kernel's plain PyTorch version, which the wrapper has always
   taken for a CPU tensor;
 * fake (``register_fake``): fresh outputs of the right shapes and types,

@@ -38,7 +38,7 @@ from mvtb_tpu_torch.ops.dft import split_bf16  # noqa: F401  (the plane tiers' s
 from mvtb_tpu_torch.ops.fused import (StageDraws, StylizeConfig, _off_of,
                                       _salt_and_pepper, _to_raw_index,
                                       spike_log_values)
-from mvtb_tpu_torch.utils.profiling import span
+from mvtb_tpu_torch.utils.profiling import count, span
 
 # Bits of the kernel's ``flags`` argument (csrc/fused_plane.cu).
 _F_GIBBS, _F_GIBBS_SYM, _F_DISK, _F_INSIDE_OFF, _F_WRAP = 1, 2, 4, 8, 16
@@ -314,7 +314,7 @@ def plane_stylize_half(k_re, k_im, spatial, flags, wparams, locs, vals, gates,
     A thin call of the custom op ``mvtb::fused_plane`` (:mod:`._ops`): a
     CPU tensor runs :func:`plane_stylize_half_plain`; a CUDA tensor
     launches the kernel (:func:`launch`), which counts the launch in
-    ``plane_stylize_half.launches``; any other device raises.
+    ``profiling.counters["launch.fused_plane"]``; any other device raises.
     """
     if k_re.device.type not in ("cpu", "cuda"):
         raise ValueError(f"plane_stylize_half: no kernel for {k_re.device}")
@@ -363,11 +363,8 @@ def launch(k_re, k_im, spatial, flags, wparams, locs, vals, gates, conjs,
     if err != 0:
         msg = lib.mvtb_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_plane kernel launch failed: {msg} ({err})")
-    plane_stylize_half.launches += 1
+    count("launch.fused_plane")
     return o_re, o_im
-
-
-plane_stylize_half.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -29,8 +29,9 @@ Precision tiers (:data:`TIERS`), those of the TPU kernels' ``_fast``:
 
 The wrappers call the custom op ``mvtb::axis_dft`` (:mod:`._ops`), which
 ``torch.export`` traces. On a CUDA tensor it launches the kernel
-(:func:`launch`) or raises, and adds one to ``launches[body]`` and to
-``tier_launches[(body, route, precision)]``; on a CPU tensor it runs
+(:func:`launch`) or raises, and adds one to the process's counters
+(``utils/profiling.py``) ``launch.axis_dft.<body>`` and
+``launch.axis_dft.<body>.<route>.<precision>``; on a CPU tensor it runs
 :func:`plain`, the same function in plain PyTorch
 (``torch.matmul`` over the same views, on the tier's bf16 parts as float32
 values, whose products are exact), and counts nothing. Routes: every body at
@@ -42,12 +43,12 @@ matrices the host lays out once per matrix set (:func:`pack_mats`); the
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from mvtb_tpu_torch.ops import dft as _dft
+from mvtb_tpu_torch.utils.profiling import count
 
 BODIES = {"r2c": 0, "c2c": 1, "c2r": 2}
 # (data inputs, matrices, outputs) of each body
@@ -55,10 +56,6 @@ ARITY = {"r2c": (1, 2, 2), "c2c": (2, 3, 2), "c2r": (2, 2, 1)}
 TIERS = ("highest", "high", "default")
 # bf16 parts of a tensor-core operand
 _PARTS = {"default": 1, "high": 2}
-# Kernel launches per body, and per (body, route, precision), counted by the
-# wrappers on CUDA tensors only.
-launches = {"r2c": 0, "c2c": 0, "c2r": 0}
-tier_launches: Counter = Counter()
 
 # Tensor-core tiles of csrc/axis_dft.cu: output columns of one wgmma chunk
 # and the depth of one stage.
@@ -295,8 +292,8 @@ def launch(body: str, lane: bool, ins, mats, precision: str):
     if err != 0:
         msg = lib.mvtb_axis_dft_error_string(err).decode()
         raise RuntimeError(f"axis_dft {body} kernel launch failed: {msg} ({err})")
-    launches[body] += 1
-    tier_launches[(body, path, precision)] += 1
+    count(f"launch.axis_dft.{body}")
+    count(f"launch.axis_dft.{body}.{path}.{precision}")
     return outs
 
 

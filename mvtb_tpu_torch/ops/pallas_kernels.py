@@ -17,7 +17,8 @@ Two kernels, one source (``csrc/pointwise.cu``):
 
 Each wrapper is a thin call of a custom op (:mod:`._ops`), which
 ``torch.export`` traces. On a CUDA tensor the op launches its kernel (or
-raises) and adds one to ``launches[name]``; on a CPU tensor it runs the
+raises) and adds one to the process's counter ``launch.<name>``
+(``utils/profiling.py``); on a CPU tensor it runs the
 plain PyTorch version
 (:func:`salt_and_pepper_plain`, :func:`polar_roundtrip_plain`), which
 repeats the kernel's arithmetic, Philox stream included, and counts
@@ -33,9 +34,7 @@ import torch
 
 from mvtb_tpu_torch.ops.corruptions import sap_select
 from mvtb_tpu_torch.ops.fourier import from_polar
-
-# Kernel launches, counted by the wrappers on CUDA tensors only.
-launches = {"sap": 0, "polar": 0}
+from mvtb_tpu_torch.utils.profiling import count
 
 _LIB = {}
 
@@ -148,7 +147,7 @@ def _launch(kernel: str, fn, *args, dev) -> None:
     if err != 0:
         msg = _lib().mvtb_pointwise_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
-    launches[kernel] += 1
+    count(f"launch.{kernel}")
 
 
 def salt_and_pepper_pallas(x: torch.Tensor, p, seed) -> torch.Tensor:

@@ -6,8 +6,8 @@ host loop of K :func:`~mvtb_tpu_torch.train.seg.seg_train_step` calls whose
 batches are taken on the device (``index_select`` of pool rows), whose
 losses are summed on the device, and whose mean comes back as a device
 scalar: the caller reads it once a chunk, and nothing in the loop waits
-for the card. Capturing the chunk in a CUDA graph is ROADMAP.md section 2's
-host-dispatch item.
+for the card. Capturing the chunk in a CUDA graph is ROADMAP.md section 4
+item 5's host-dispatch step.
 
 The GAN chunk functions (:func:`make_dcgan_chunk_fn`,
 :func:`make_recon_gan_chunk_fn`) run K steps of

@@ -27,9 +27,13 @@ SwinUNETR forward (``models/swin_unetr.py``) ``mvtb.swin.encoder`` >
 ``copy.d2h_pinned_bytes`` (the part of each from or into page-locked
 memory), ``eval.volumes`` (rows the harness evaluated), ``sw.tiles``
 (sliding-window tiles needed), ``sw.tile_slots`` (tile slots forwarded,
-padding included), and SwinUNETR's ``swin.tokens`` (real tokens entering a
+padding included), SwinUNETR's ``swin.tokens`` (real tokens entering a
 block), ``swin.window_tokens`` (padded tokens it attends) and
-``swin.windows``.
+``swin.windows``, and the hand-written kernels' launches on the card,
+counted inside each custom op's CUDA implementation (``ops/_ops.py``):
+``launch.fused_plane``, ``launch.sap``, ``launch.polar``,
+``launch.axis_dft.<body>`` and, by route and tier,
+``launch.axis_dft.<body>.<route>.<precision>``.
 """
 
 from __future__ import annotations

@@ -31,6 +31,19 @@ PHASES = ("wait", "issue", "convert", "barrier", "wgmma", "epilogue")
 BLOCKS = 8192  # rows of the kernel's counter array
 
 
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device ms per call over ``iters`` back-to-back calls after one
+    warm-up call, by CUDA events."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def build_profiled() -> ctypes.CDLL:
     out = _build.BUILD_DIR.parent / "profile"
     out.mkdir(parents=True, exist_ok=True)
@@ -70,7 +83,7 @@ def main() -> int:
         args = cs.plane_case(fused.StylizeConfig(**cs.BENCH_STACK, fft_backend=backend),
                              shape, dev, seed=3)
         fused_plane._LIB.pop("fused_plane", None)  # the build without counters
-        ms = cs.cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=fast), 10)
+        ms = cuda_ms(lambda: fused_plane.plane_stylize_half(*args, fast=fast), 10)
         fused_plane._LIB["fused_plane"] = profiled
         counts = np.zeros((BLOCKS, 2, 8), np.uint64)
         fused_plane.plane_stylize_half(*args, fast=fast)  # warm-up

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from mvtb_tpu_torch.ops import dft, fused, fused_plane, pallas_dft, pallas_kernels
+from mvtb_tpu_torch.utils import profiling
 
 CASES = [
     dict(disk_r=6.0),
@@ -50,6 +51,23 @@ CASES = [
 ]
 TOL = {"plane": 5e-5, "plane_fast": 2e-2}
 EXACT_RATIO = 3.0
+
+
+def launch_counts() -> dict:
+    """A snapshot of the process's kernel-launch counters."""
+    return {k: v for k, v in profiling.counters.items() if k.startswith("launch.")}
+
+
+def launched_since(before: dict) -> dict:
+    """The ``launch.*`` counters that moved since the snapshot ``before``,
+    each with the launches it counted since."""
+    moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+    return {k: n for k, n in moved.items() if n}
+
+
+def axis_launches(moved: dict) -> dict:
+    """Launches of each axis-kernel body in ``launched_since``'s reading."""
+    return {b: moved.get(f"launch.axis_dft.{b}", 0) for b in pallas_dft.BODIES}
 
 
 @pytest.fixture
@@ -88,10 +106,10 @@ def test_plane_kernel_matches_plain(backend, shape, cuda_device):
                                                   cuda_device)
         x = torch.randn(N, H, W, D, generator=g, device=cuda_device)
         k_re, k_im = dft.half_dft_axis(x, 1)
-        before = fused_plane.plane_stylize_half.launches
+        before = launch_counts()
         got = fused_plane.plane_stylize_half(k_re, k_im, (H, W, D), flags,
                                              *params, fast=fast)
-        assert fused_plane.plane_stylize_half.launches == before + 1
+        assert launched_since(before) == {"launch.fused_plane": 1}
         ref = fused_plane.plane_stylize_half_plain(k_re, k_im, (H, W, D), flags,
                                                    *params, fast=fast)
         torch.cuda.synchronize()
@@ -116,7 +134,7 @@ def test_plane_kernel_rejects_bad_input(cuda_device):
     k = torch.zeros(2, 5, 6, 4, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError):
         fused_plane.plane_stylize_half(k, k, (8, 6, 4), flags, *params)
-    before = fused_plane.plane_stylize_half.launches
+    before = launch_counts()
     k = torch.zeros(2, 5, 4, 6, device=cuda_device).transpose(2, 3)  # not contiguous
     with pytest.raises(ValueError):
         fused_plane.plane_stylize_half(k, k, (8, 6, 4), flags, *params)
@@ -126,7 +144,7 @@ def test_plane_kernel_rejects_bad_input(cuda_device):
     k = torch.zeros(2, 5, 6, 4, device=cuda_device)
     with pytest.raises(ValueError):  # parameters on another device
         fused_plane.plane_stylize_half(k, k, (8, 6, 4), flags, *[p.cpu() for p in params])
-    assert fused_plane.plane_stylize_half.launches == before
+    assert launch_counts() == before
 
 
 AXIS_TOL = {"highest": 1e-5, "high": 5e-5, "default": 2e-2}
@@ -158,14 +176,14 @@ def _axis_case(body, lane, view, g, dev):
 def test_axis_kernel_matches_plain(body, lane, precision, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     call = pallas_dft.lane_call if lane else pallas_dft.sub_call
-    key = (body, pallas_dft.route(body, precision), precision)
+    route = pallas_dft.route(body, precision)
     for views in AXIS_VIEWS:
         view = views[0] if lane else views[1]
         ins, mats = _axis_case(body, lane, view, g, cuda_device)
-        before, by_route = pallas_dft.launches[body], pallas_dft.tier_launches[key]
+        before = launch_counts()
         got = call(body, ins, mats, precision)
-        assert pallas_dft.launches[body] == before + 1
-        assert pallas_dft.tier_launches[key] == by_route + 1
+        assert launched_since(before) == {f"launch.axis_dft.{body}": 1,
+                                          f"launch.axis_dft.{body}.{route}.{precision}": 1}
         ref = pallas_dft.plain(body, lane, ins, mats, precision)
         torch.cuda.synchronize()
         assert len(got) == len(ref) == pallas_dft.ARITY[body][2]
@@ -259,17 +277,15 @@ def test_general_stylize_on_the_card_matches_cpu(backend, cuda_device):
     g = torch.Generator().manual_seed(3)
     x = torch.randn(2, 3, 20, 18, 15, generator=g)
     draws = fused.sample_draws(cfg, (20, 18, 15), 2, 3, generator=g, device="cpu")
-    before = dict(pallas_dft.launches)
-    high = {b: pallas_dft.tier_launches[(b, pallas_dft.route(b, "high"), "high")]
-            for b in before}
+    before = launch_counts()
     got = fused.stylize_batch(x, cfg, draws=draws, device=cuda_device)
     torch.cuda.synchronize()
     ref = fused.stylize_batch(x, cfg, draws=draws, device="cpu")
     if backend == "dft_pallas":  # every launch at high, r2c and c2c on the tensor cores
-        assert {k: pallas_dft.launches[k] - before[k] for k in before} == \
-            {"r2c": 1, "c2c": 4, "c2r": 1}
-        assert {b: pallas_dft.tier_launches[(b, pallas_dft.route(b, "high"), "high")]
-                - high[b] for b in before} == {"r2c": 1, "c2c": 4, "c2r": 1}
+        moved = launched_since(before)
+        assert axis_launches(moved) == {"r2c": 1, "c2c": 4, "c2r": 1}
+        assert {b: moved.get(f"launch.axis_dft.{b}.{pallas_dft.route(b, 'high')}.high", 0)
+                for b in pallas_dft.BODIES} == {"r2c": 1, "c2c": 4, "c2r": 1}
     # dft_pallas: bf16x3 on both sides, the axis kernels' high bound
     tol = AXIS_TOL["high"] if backend == "dft_pallas" else 1e-5
     assert rel_err(got.cpu(), ref) <= tol
@@ -341,13 +357,13 @@ def test_2d_and_complex_stylize_on_the_card_matches_cpu(backend, complex_path, c
         x = torch.randn(shape, generator=g)
         draws = fused.sample_draws(cfg, shape[2:], shape[0], shape[1], generator=g,
                                    device="cpu")
-        before = dict(pallas_dft.launches)
+        before = launch_counts()
         got = fused.stylize_batch(x, cfg, draws=draws, device=cuda_device)
         torch.cuda.synchronize()
         ref = fused.stylize_batch(x, cfg, draws=draws, device="cpu")
         if backend == "dft_pallas":
             nd = len(shape) - 2
-            assert {k: pallas_dft.launches[k] - before[k] for k in before} == \
+            assert axis_launches(launched_since(before)) == \
                 {"r2c": 1, "c2c": 2 * (nd - 1), "c2r": 1}
         tol = AXIS_TOL["high"] if backend == "dft_pallas" else 1e-5
         assert rel_err(got.cpu(), ref) <= tol, (kw, backend)
@@ -370,9 +386,9 @@ def test_sap_kernel_bit_equal_to_plain(shape, cuda_device):
     x = torch.randn(shape, generator=g, device=cuda_device)
     for view in (x, x.reshape(-1)[1:]):
         for p in (0.0, 0.05, 0.4):
-            before = pallas_kernels.launches["sap"]
+            before = launch_counts()
             got = pallas_kernels.salt_and_pepper_pallas(view, p, 123)
-            assert pallas_kernels.launches["sap"] == before + 1
+            assert launched_since(before) == {"launch.sap": 1}
             ref = pallas_kernels.salt_and_pepper_plain(view, p, 123)
             torch.cuda.synchronize()
             assert torch.equal(got, ref), (shape, p)
@@ -387,9 +403,9 @@ def test_polar_kernel_matches_plain(shape, cuda_device):
     re.view(-1)[:4] = torch.tensor([0.0, -0.0, 1e-40, 1e-30])
     im.view(-1)[:4] = torch.tensor([0.0, 0.0, 1e-40, 0.0])
     for a, b in ((re, im), (re.reshape(-1)[1:], im.reshape(-1)[1:])):
-        before = pallas_kernels.launches["polar"]
+        before = launch_counts()
         got = pallas_kernels.polar_roundtrip_pallas(a, b)
-        assert pallas_kernels.launches["polar"] == before + 1
+        assert launched_since(before) == {"launch.polar": 1}
         ref = pallas_kernels.polar_roundtrip_plain(a, b)
         torch.cuda.synchronize()
         for o, r in zip(got, ref):

@@ -2,6 +2,7 @@
 its entry points default to the card and raise without one, and its kernel
 wrapper raises instead of falling back."""
 
+import ast
 import os
 import re
 import shutil
@@ -19,11 +20,11 @@ from mvtb_tpu_torch import transforms as T
 from mvtb_tpu_torch.ops import _build, fused, fused_plane, masks, pallas_dft, pallas_kernels
 from mvtb_tpu_torch.train import (create_seg_state, seg_eval_step, seg_train_step,
                                   train_segmentation)
+from mvtb_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mvtb_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                               ROOT / "plane_profile.py",
-                                                               ROOT / "instance_norm_ab.py"]
+                                                               ROOT / "plane_profile.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b"
     r"|^\s*(import|from)\s+mvtb_tpu(\.|\s|$)"
@@ -83,6 +84,11 @@ def test_scan_catches_a_jax_import():
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def launch_counts() -> dict:
+    """A snapshot of the process's kernel-launch counters."""
+    return {k: v for k, v in profiling.counters.items() if k.startswith("launch.")}
 
 
 def test_entry_points_default_to_the_card(no_card):
@@ -173,8 +179,8 @@ def test_serving_utils_and_compat_default_to_the_card(no_card, tmp_path):
 def test_custom_op_on_the_card_reaches_its_kernel_or_raises(op, monkeypatch, tmp_path):
     """Each custom op's CUDA implementation is the kernel launch: dispatched
     to the CUDA key here (no card, no compiler) it reaches the kernel's
-    library and raises; it never runs the plain version, and counts
-    nothing."""
+    library and raises; it never runs the plain version, and no ``launch.*``
+    counter moves."""
     from mvtb_tpu_torch.ops import _ops  # noqa: F401  (registers the ops)
 
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
@@ -192,13 +198,11 @@ def test_custom_op_on_the_card_reaches_its_kernel_or_raises(op, monkeypatch, tmp
             "axis_dft": ("c2c", False, [k.reshape(10, 6, 4)] * 2, mats, "high"),
             "sap": (k, torch.tensor(0.1), torch.tensor(3)),
             "polar": (k, k)}[op]
-    counts = (fused_plane.plane_stylize_half.launches, dict(pallas_dft.launches),
-              dict(pallas_kernels.launches))
+    counts = launch_counts()
     overload = getattr(torch.ops.mvtb, op).default
     with pytest.raises(RuntimeError, match="nvcc"):
         overload.redispatch(torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), *args)
-    assert counts == (fused_plane.plane_stylize_half.launches, dict(pallas_dft.launches),
-                      dict(pallas_kernels.launches))
+    assert launch_counts() == counts
     assert not (tmp_path / "build").exists()
 
 
@@ -243,11 +247,12 @@ def test_pointwise_wrappers_never_run_plain_off_the_cpu():
     on any device but the CPU (``meta`` here) raises instead of reaching
     the plain version, and the kernel library raises without a compiler."""
     x = torch.zeros(2, 3, 4, device="meta")
+    counts = launch_counts()
     for call in (lambda: pallas_kernels.salt_and_pepper_pallas(x, 0.1, 1),
                  lambda: pallas_kernels.polar_roundtrip_pallas(x, x)):
         with pytest.raises(ValueError, match="no kernel"):
             call()
-    assert pallas_kernels.launches == {"sap": 0, "polar": 0}
+    assert launch_counts() == counts
 
 
 def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
@@ -285,30 +290,28 @@ def test_wrapper_takes_plain_only_for_cpu_tensors():
     draws = fused.sample_draws(cfg, (8, 6, 4), 2, 1, device=cpu)
     flags, *params = fused_plane.plane_params(cfg, (8, 6, 4), draws, 2, 1, cpu)
     k = torch.randn(2, 5, 6, 4)
-    before = fused_plane.plane_stylize_half.launches
+    before = launch_counts()
     got = fused_plane.plane_stylize_half(k, k, (8, 6, 4), flags, *params)
     ref = fused_plane.plane_stylize_half_plain(k, k, (8, 6, 4), flags, *params)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert fused_plane.plane_stylize_half.launches == before  # no kernel ran
+    assert launch_counts() == before  # no kernel ran
     meta = k.to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused_plane.plane_stylize_half(meta, meta, (8, 6, 4), flags, *params)
     # the pointwise kernels' wrappers: plain on CPU tensors, nothing counted
-    counts = dict(pallas_kernels.launches)
     assert torch.equal(pallas_kernels.salt_and_pepper_pallas(k, 0.2, 5),
                        pallas_kernels.salt_and_pepper_plain(k, 0.2, 5))
     assert all(torch.equal(a, b) for a, b in zip(
         pallas_kernels.polar_roundtrip_pallas(k, k), pallas_kernels.polar_roundtrip_plain(k, k)))
-    assert pallas_kernels.launches == counts
+    assert launch_counts() == before
     # the axis kernels' n-D transforms (every path of dft_pallas, the complex
     # one too): plain on CPU tensors, no kernel and no fallback elsewhere
-    before = dict(pallas_dft.launches)
     x = torch.randn(2, 6, 5)
     for fn in (pallas_dft.dft_nd, pallas_dft.idft_nd_real):
         torch.testing.assert_close(fn(x, (1, 2), "high"), fn(x, (1, 2), "high"))
         with pytest.raises(ValueError, match="no kernel"):
             fn(x.to("meta"), (1, 2), "high")
-    assert pallas_dft.launches == before
+    assert launch_counts() == before
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -367,9 +370,37 @@ def test_plane_profile_fails_without_a_card():
     assert "no CUDA device" in res.stderr
 
 
-def test_instance_norm_ab_fails_without_a_card():
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    res = subprocess.run([sys.executable, str(ROOT / "instance_norm_ab.py")], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 2
-    assert "no CUDA device" in res.stderr
+def _assigned_names(path: Path) -> list:
+    """Every name a file binds at module level, and every attribute any of
+    its statements assigns."""
+    tree = ast.parse(path.read_text())
+    names = [t.id for node in tree.body if isinstance(node, (ast.Assign, ast.AnnAssign))
+             for t in (node.targets if isinstance(node, ast.Assign) else [node.target])
+             if isinstance(t, ast.Name)]
+    names += [t.attr for node in ast.walk(tree) if isinstance(node, (ast.Assign, ast.AugAssign))
+              for t in (node.targets if isinstance(node, ast.Assign) else [node.target])
+              if isinstance(t, ast.Attribute)]
+    return names
+
+
+def _defined_functions(path: Path) -> list:
+    return [n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+
+
+@pytest.mark.parametrize("rule", ["launches_in_profiling_counters", "chip_smoke_times_nothing"])
+def test_measurement_lives_in_one_place(rule):
+    """The port counts its kernel launches only in ``profiling.counters``
+    (no module keeps a launch counter of its own, as a global or as a
+    function's attribute), and ``chip_smoke.py`` checks without timing:
+    the benchmark (``portbench/``) and ``plane_profile.py`` measure."""
+    if rule == "launches_in_profiling_counters":
+        own = {f"{p.relative_to(ROOT)}: {n}" for p in PORT_FILES for n in _assigned_names(p)
+               if re.fullmatch(r"(tier_)?launches", n)}
+        assert not own, own
+    else:
+        timing = [n for n in _defined_functions(ROOT / "chip_smoke.py")
+                  if re.fullmatch(r".*_bound|.*_timing|graph_ms|cuda_ms|_op_overhead|"
+                                  r"kernels_line|_runner_rates|axis_library", n)]
+        assert not timing, timing
+        assert "cuda_ms" in _defined_functions(ROOT / "plane_profile.py")

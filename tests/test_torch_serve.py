@@ -40,6 +40,7 @@ from mvtb_tpu_torch.ops.fused import StylizeConfig, sample_draws, stylize_batch
 from mvtb_tpu_torch.serve import (ServingBundle, default_platforms, export_fn, load_fn,
                                   module_fn)
 from test_torch_fused_plane import jax_stage_draws
+from test_torch_rules import launch_counts
 from torch_dist_worker import World
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -361,8 +362,7 @@ def test_custom_op_exports_on_the_cpu(name):
     another batch size with the plain version's values; nothing counts a
     launch on the CPU. S&P's ``p`` and ``seed`` stay program inputs."""
     fn, ex, other, dims = _op_case(name)
-    before = (fused_plane.plane_stylize_half.launches, dict(pallas_dft.launches),
-              dict(pallas_kernels.launches))
+    before = launch_counts()
     blob = export_fn(fn, ex, dynamic_shapes=dims)
     assert _op_names(blob) == {name}
     served = load_fn(blob, device="cpu")
@@ -373,8 +373,7 @@ def test_custom_op_exports_on_the_cpu(name):
         reseeded = served(other[0], other[1], other[2] + 1)
         assert torch.equal(reseeded, fn(other[0], other[1], other[2] + 1))
         assert not torch.equal(reseeded, got)
-    assert before == (fused_plane.plane_stylize_half.launches, dict(pallas_dft.launches),
-                      dict(pallas_kernels.launches))
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("name", OP_NAMES)

@@ -12,6 +12,7 @@ The byte counters' exact reading on the card:
 import copy
 import io
 import json
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -164,6 +165,26 @@ def test_moves_within_the_host_count_no_bytes():
     assert profiling.to_host(t) is t
     assert profiling.to_device(t, "meta").device.type == "meta"  # not the card
     assert profiling.counters == before
+
+
+def test_study_launch_record_reads_the_launch_counters(monkeypatch):
+    """The study scripts' launch record (``examples/_common.kernel_launches``)
+    keeps its keys and reads the ``launch.*`` counters that the custom ops'
+    CUDA implementations add to; two readings apart give the launches
+    between them, the route-and-tier counters aside."""
+    from mvtb_tpu_torch.examples._common import kernel_launches
+
+    monkeypatch.setattr(profiling, "counters", Counter({"launch.fused_plane": 3}))
+    before = kernel_launches()
+    assert before == {"fused_plane": 3, "axis_dft_r2c": 0, "axis_dft_c2c": 0,
+                      "axis_dft_c2r": 0, "sap": 0, "polar": 0}
+    for name in ("launch.fused_plane", "launch.axis_dft.c2c", "launch.axis_dft.c2c.wgmma.high",
+                 "launch.axis_dft.c2c", "launch.axis_dft.c2c.wgmma.high", "launch.polar"):
+        profiling.count(name)
+    after = kernel_launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        "fused_plane": 1, "axis_dft_r2c": 0, "axis_dft_c2c": 2, "axis_dft_c2r": 0,
+        "sap": 0, "polar": 1}
 
 
 def test_export_under_a_profiler_holds_no_profiler_op():
