@@ -29,6 +29,24 @@ normalisation computes its statistics in float32 and rounds its output to
 ``dtype``; PReLU casts its slope to the input's type. So with
 ``dtype=torch.bfloat16`` every activation is bfloat16, as in the JAX
 package's default training configuration.
+
+On the card at a 16-bit compute type the UNet runs channels-last (NDHWC),
+the form cuDNN's Hopper tensor-core convolutions take, so that cuDNN makes
+no layout copy of a bf16 operand: ``UNet.forward`` lays out a CUDA input
+whose ``dtype`` is bfloat16 or float16 channels-last in the one cast it
+makes, and hands back one contiguous NCDHW tensor. The modules follow
+their input: on a channels-last input (:func:`_ndhwc`) each convolution
+casts its weight channels-last, and one whose pads are symmetric on every
+axis pads inside cuDNN rather than by a copy (with the copy, cuDNN takes a
+CUDA-core data gradient for some layers). Channel counts stay as they are:
+cuDNN pads the 4-channel input itself and runs the forward of the layers
+of 3 output channels on its CUDA-core sgemm, which costs less than
+carrying zero channels to 8 through the full-resolution layers. Parameters keep their shapes and layout; gradients reach them
+through the cast. Elsewhere (the CPU, float32, and any NCDHW tensor, such
+as the tensor-parallel gather's output) nothing changes.
+Counters (``utils/profiling.py``): ``unet.convs`` (every convolution call,
+transposed ones included), ``unet.convs_ndhwc`` (those on a channels-last
+input).
 """
 
 from __future__ import annotations
@@ -41,6 +59,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvtb_tpu_torch._device import DeviceLike, resolve_device
+from mvtb_tpu_torch.utils.profiling import count
+
+_NDHWC = torch.channels_last_3d
 
 
 def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -57,6 +78,36 @@ def _instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var, mean = torch.var_mean(x, dim=tuple(range(2, x.ndim)), keepdim=True,
                                correction=0)
     return (x - mean) * torch.rsqrt(var + eps)
+
+
+def _ndhwc(x: torch.Tensor) -> bool:
+    """Whether ``x`` is laid out channels-last and not also channels-first
+    (a tensor of one channel or one voxel is both, and counts as NCDHW)."""
+    return x.is_contiguous(memory_format=_NDHWC) and not x.is_contiguous()
+
+
+def _engages(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether ``UNet.forward`` runs channels-last: a CUDA input at a 16-bit
+    compute type."""
+    return x.is_cuda and dtype in (torch.bfloat16, torch.float16)
+
+
+def _cast_weight(w: torch.Tensor, dtype: torch.dtype, ndhwc: bool) -> torch.Tensor:
+    """``w`` in ``dtype``, channels-last where ``ndhwc``: one cast."""
+    return w.to(dtype=dtype, memory_format=_NDHWC) if ndhwc else w.to(dtype)
+
+
+def _keep_ndhwc(y: torch.Tensor, ndhwc: bool) -> torch.Tensor:
+    """A convolution's output channels-last where its input was: cuDNN's
+    already is; a CPU convolution without a channels-last kernel (float64)
+    returns NCDHW."""
+    return y.contiguous(memory_format=_NDHWC) if ndhwc else y
+
+
+def _count_conv(ndhwc: bool) -> None:
+    count("unet.convs")
+    if ndhwc:
+        count("unet.convs_ndhwc")
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
@@ -77,13 +128,21 @@ class Conv(nn.Module):
         _lecun_normal_(self.weight, cin * k ** 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pads = []
-        for n in reversed(x.shape[2:]):  # F.pad lists the last axis first
-            pads += _same_pads(n, self.kernel_size, self.stride)
+        ndhwc = _ndhwc(x)
+        _count_conv(ndhwc)
+        axis_pads = [_same_pads(n, self.kernel_size, self.stride) for n in x.shape[2:]]
+        w = _cast_weight(self.weight, self.dtype, ndhwc)
         x = x.to(self.dtype)
-        if any(pads):
-            x = F.pad(x, pads)
-        y = F.conv3d(x, self.weight.to(self.dtype), stride=self.stride)
+        if ndhwc and all(lo == hi for lo, hi in axis_pads):
+            # symmetric pads: cuDNN pads, no copy of the input
+            y = F.conv3d(x, w, stride=self.stride,
+                         padding=tuple(lo for lo, _ in axis_pads))
+        else:
+            pads = [p for lo_hi in reversed(axis_pads) for p in lo_hi]  # last axis first
+            if any(pads):
+                x = F.pad(x, pads)
+            y = F.conv3d(x, w, stride=self.stride)
+        y = _keep_ndhwc(y, ndhwc)
         return y + self.bias.to(y.dtype).view(-1, 1, 1, 1)
 
 
@@ -105,8 +164,10 @@ class ConvTranspose(nn.Module):
         # lax.conv_transpose SAME: pad_lo = k-1 if s > k-1 else ceil((k+s-2)/2)
         pad_lo = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
         start = k - 1 - pad_lo
-        y = F.conv_transpose3d(x.to(self.dtype), self.weight.to(self.dtype),
-                               stride=s)
+        ndhwc = _ndhwc(x)
+        _count_conv(ndhwc)
+        w = _cast_weight(self.weight, self.dtype, ndhwc)
+        y = _keep_ndhwc(F.conv_transpose3d(x.to(self.dtype), w, stride=s), ndhwc)
         n = x.shape[2:]
         y = y[:, :, start:start + n[0] * s, start:start + n[1] * s,
               start:start + n[2] * s]
@@ -177,7 +238,8 @@ class UNet(nn.Module):
 
     Input and output are channel-first ``(B, C, H, W, D)``; the output is
     logits (no final activation) in ``dtype``, the compute type (parameters
-    stay float32). ``device=None`` means ``"cuda"``.
+    stay float32). ``device=None`` means ``"cuda"``. A CUDA input at a 16-bit
+    ``dtype`` runs channels-last inside (the module docstring).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -243,4 +305,11 @@ class UNet(nn.Module):
         return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _engages(x, self.dtype):
+            return self._forward_ndhwc(x)
         return self._run(self._plan, x)
+
+    def _forward_ndhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward channels-last inside, on any device: NCDHW in and out."""
+        x = x.to(dtype=self.dtype, memory_format=_NDHWC)
+        return self._run(self._plan, x).contiguous()

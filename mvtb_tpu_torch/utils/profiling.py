@@ -29,7 +29,10 @@ memory), ``eval.volumes`` (rows the harness evaluated), ``sw.tiles``
 (sliding-window tiles needed), ``sw.tile_slots`` (tile slots forwarded,
 padding included), SwinUNETR's ``swin.tokens`` (real tokens entering a
 block), ``swin.window_tokens`` (padded tokens it attends) and
-``swin.windows``, and the hand-written kernels' launches on the card,
+``swin.windows``, the UNet's convolution calls (``models/unet3d.py``):
+``unet.convs`` (all, transposed ones included) and ``unet.convs_ndhwc``
+(those on a channels-last input), and the hand-written kernels' launches
+on the card,
 counted inside each custom op's CUDA implementation (``ops/_ops.py``):
 ``launch.fused_plane``, ``launch.sap``, ``launch.polar``,
 ``launch.axis_dft.<body>`` and, by route and tier,

@@ -304,6 +304,36 @@ def tp_world(rank, world, data):
             "moments_sliced": sliced}
 
 
+@job
+def tp_ndhwc_world(rank, world, data):
+    """A float64 UNet split ``world`` ways on ``model``, through its
+    channels-last forward and backward: the logits, the input's gradient,
+    every parameter's full gradient (the split ones gathered) and each split
+    parameter's (shape, dim)."""
+    from mvtb_tpu_torch.models import UNet
+    from mvtb_tpu_torch.parallel import make_mesh, shard_params_tp
+
+    mesh = make_mesh(n_data=1, n_model=world, device="cpu")
+    model = UNet(4, 3, data["channels"], data["strides"], device="cpu", dtype=torch.float64)
+    model.load_state_dict(data["state"])
+    shard_params_tp(mesh, model)
+    x = data["x"].clone().requires_grad_(True)
+    y = model._forward_ndhwc(x)
+    (y * data["r"]).sum().backward()
+    grads, split = {}, {}
+    for mname, module in model.named_modules():
+        dims = getattr(module, "tp_split", {})
+        for pname, p in module.named_parameters(recurse=False):
+            g, key = p.grad.contiguous(), f"{mname}.{pname}"
+            if pname in dims:
+                split[key] = (tuple(p.shape), dims[pname])
+                parts = [torch.empty_like(g) for _ in range(world)]
+                dist.all_gather(parts, g, group=mesh.group("model"))
+                g = torch.cat(parts, dim=dims[pname])
+            grads[key] = g
+    return {"logits": y.detach(), "x_grad": x.grad, "grads": grads, "split": split}
+
+
 # --------------------------------------------------------------------------
 # the H-split k-space stylization
 # --------------------------------------------------------------------------
