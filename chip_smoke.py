@@ -214,6 +214,21 @@ the plane kernel's stages. Phases, in order, each fatal on failure:
    and B = 2 (whether it fits); every other script at its smallest useful
    size, ``full_scale_run`` stopped after 2 epochs and resumed to 4; one
    line a script with its seconds and output keys.
+17. scan phase (SegMamba's selective scan, ``csrc/selective_scan.cu``):
+   the custom ops ``mvtb::selective_scan_fwd`` / ``_bwd`` on the card at
+   each SegMamba stage's shape at batch 2 in bfloat16 (channels 96, 192,
+   384, 768 over 262,144, 32,768, 4,096 and 512 positions; Mamba's
+   initialisation of ``A``, ``D`` and the bias) against the plain versions
+   ``scan_fwd_plain`` / ``scan_bwd_plain`` on the same tensors: the output,
+   the chunk start states and all eight gradients within 1e-2 of each
+   one's max, one launch of each op a call and none of another kernel;
+   then one chunk of one training step of SegMamba at its published
+   widths (67,416,147 parameters) on 2 crops of 4x128^3 in bf16 through
+   ``make_chunk_fn``, stylized by Gibbs r = 12.5 on ``plane_fast`` as the
+   benchmark's SegMamba cell trains: 24 scans (8 Mamba layers x 3
+   directions), 24 launches of the forward and of the backward, one plane
+   launch, no plain scan on the card, a finite loss and changed
+   parameters;
 
 Launches are read as differences of two readings of the process's
 ``launch.*`` counters (``mvtb_tpu_torch/utils/profiling.py``). Each phase
@@ -367,6 +382,17 @@ LEARN_RESUME_STEPS, LEARN_FIXED_STEPS, LEARN_PROBE_STEPS = 4, 4, 3
 LEARN_SMALL = dict(channels=(8, 16, 32), strides=(2, 2), num_res_units=2)
 LEARN_SMALL_SHAPE = (1, 1, 32, 32, 32)
 LEARN_GRAD_TOL, LEARN_STYL_TOL = 1e-4, 1e-6
+# the scan phase: SegMamba's stages at batch 2 (channels, positions), and
+# the kernel against its plain version relative to each output's max, bf16
+# on both sides: both round one float32 result to bf16, and the kernel's
+# exp2 and order of sums move some elements to the neighbouring bf16 value
+# (2^-8 of that element)
+SCAN_STAGES = ((96, 262144), (192, 32768), (384, 4096), (768, 512))
+SCAN_BATCH, SCAN_TOL = 2, 1e-2
+SCAN_GRADS = ("du", "ddelta", "dz", "dB", "dC", "dA", "dD", "ddelta_bias")
+# one step of the benchmark's SegMamba cell: 2 crops of 4x128^3, 24 scans a
+# forward (8 Mamba layers x 3 directions)
+SEGMAMBA_SHAPE, SEGMAMBA_SCANS, SEGMAMBA_PARAMS = (2, 4, 128, 128, 128), 24, 67_416_147
 # the NIfTI path: MONAI's split keeps int(0.2 n) = 2 validation volumes and
 # the sweep's half split 1; "smooth" volumes (the textured generator takes
 # ~12 s a 4x240x240x155 volume on one host core)
@@ -3038,6 +3064,124 @@ def studies_phase(dev) -> dict:
     return res
 
 
+def scan_inputs(b: int, d: int, L: int, dev, seed: int) -> tuple:
+    """bf16 scan inputs at ``(b, d, L)`` with Mamba's initialisation (``A =
+    -(1..16)``, ``D = 1``, ``softplus(bias)`` log-uniform in ``[1e-3,
+    0.1]``), ``z`` a channel slice of a ``(b, 2d, L)`` tensor as the model
+    hands it, and a bf16 output gradient."""
+    from mvtb_tpu_torch.ops import selective_scan as ss
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N, bf = ss.KERNEL_STATES, torch.bfloat16
+    u = torch.randn(b, d, L, generator=g, device=dev).to(bf)
+    delta = (0.1 * torch.randn(b, d, L, generator=g, device=dev)).to(bf)
+    z = torch.randn(b, 2 * d, L, generator=g, device=dev).to(bf)[:, d:]
+    B, C = (torch.randn(b, L, N, generator=g, device=dev).to(bf) for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(d, 1)
+    D = torch.ones(d, device=dev)
+    dt = torch.exp(torch.rand(d, generator=g, device=dev) * math.log(100.0) + math.log(1e-3))
+    bias = dt + torch.log(-torch.expm1(-dt))
+    dout = torch.randn(b, d, L, generator=g, device=dev).to(bf)
+    return (u, delta, z, B, C, A, D, bias), dout
+
+
+def counted_since(before: tuple) -> dict:
+    """The scan's launch counters and SegMamba's counters (``mamba.*``)
+    that moved since the reading ``before`` (:func:`launch_counts`)."""
+    moved = launch_counts()[1] - before[1]
+    return {k: n for k, n in moved.items() if k.startswith(("launch.selective_scan.", "mamba."))}
+
+
+def scan_phase(dev) -> dict:
+    """The scan's custom ops against its plain versions at each SegMamba
+    stage's shape, then one SegMamba training step at its published widths
+    on the cell's batch, with its launches counted."""
+    from mvtb_tpu_torch.models import build_seg_model
+    from mvtb_tpu_torch.ops import _ops, fused
+    from mvtb_tpu_torch.ops import selective_scan as ss
+    from mvtb_tpu_torch.train import create_seg_state, make_chunk_fn, reference_optimizer
+
+    errs = {}
+    for d, L in SCAN_STAGES:
+        args, dout = scan_inputs(SCAN_BATCH, d, L, dev, seed=d)
+        reading = launch_counts()
+        out, hstart = _ops.selective_scan_fwd(*args)
+        grads = _ops.selective_scan_bwd(*args, hstart, dout)
+        torch.cuda.synchronize()
+        moved, others = counted_since(reading), launched_since(reading)[0]
+        check(moved == {"launch.selective_scan.fwd": 1, "launch.selective_scan.bwd": 1},
+              f"scan d={d} L={L}: launches {moved}, expected one of each op")
+        check(not any(others.values()), f"scan d={d} L={L}: other kernels launched {others}")
+        want, want_h = ss.scan_fwd_plain(*args)
+        ref = ss.scan_bwd_plain(*args, want_h, dout)
+        row = {"out": rel_err(out.float(), want.float()), "hstart": rel_err(hstart, want_h)}
+        check(out.dtype == want.dtype and hstart.shape == want_h.shape,
+              f"scan d={d} L={L}: out {out.dtype}, hstart {tuple(hstart.shape)}")
+        for name, got, r in zip(SCAN_GRADS, grads, ref):
+            check(got.shape == r.shape and got.dtype == r.dtype,
+                  f"scan d={d} L={L} {name}: {tuple(got.shape)} {got.dtype}, expected "
+                  f"{tuple(r.shape)} {r.dtype}")
+            row[name] = rel_err(got.float(), r.float())
+        check(all(bool(torch.isfinite(t).all()) for t in (out, hstart, *grads)),
+              f"scan d={d} L={L}: a non-finite output")
+        worst = max(row, key=row.get)
+        check(row[worst] <= SCAN_TOL,
+              f"scan d={d} L={L}: kernel vs plain {worst} {row[worst]:.3e} > {SCAN_TOL}")
+        errs[f"d{d}_L{L}"] = row
+        del args, dout, out, hstart, grads, want, want_h, ref
+        torch.cuda.empty_cache()
+
+    torch.manual_seed(11)
+    model = build_seg_model("segmamba", SEGMAMBA_SHAPE[1], 3, device=dev, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == SEGMAMBA_PARAMS, f"SegMamba has {n_params} parameters")
+    state = create_seg_state(model, reference_optimizer(model.parameters()), device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    B = SEGMAMBA_SHAPE[0]
+    pool_i = torch.randn(SEGMAMBA_SHAPE, generator=g, device=dev)
+    pool_l = (torch.rand((B, 3) + SEGMAMBA_SHAPE[2:], generator=g, device=dev) < 0.3).float()
+    idxs = torch.arange(B, device=dev)[None]
+    chunk = make_chunk_fn(fused.StylizeConfig(disk_r=12.5, disk_prob=1.0,
+                                              fft_backend="plane_fast"), dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    plain = (ss.scan_fwd_plain, ss.scan_bwd_plain)
+    plain_on_card = []
+
+    def watched(fn):
+        def call(u, *a):
+            if u.is_cuda:
+                plain_on_card.append((fn.__name__, tuple(u.shape)))
+            return fn(u, *a)
+        return call
+
+    ss.scan_fwd_plain, ss.scan_bwd_plain = (watched(f) for f in plain)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reading = launch_counts()
+        state, _, loss = chunk(state, g, pool_i, pool_l, idxs)
+        loss = float(loss)
+        moved, others = counted_since(reading), launched_since(reading)[0]
+    finally:
+        ss.scan_fwd_plain, ss.scan_bwd_plain = plain
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(moved.get("mamba.scans") == SEGMAMBA_SCANS,
+          f"a SegMamba step ran {moved.get('mamba.scans')} scans, expected {SEGMAMBA_SCANS}")
+    for op in ("fwd", "bwd"):
+        n = moved.get(f"launch.selective_scan.{op}")
+        check(n == SEGMAMBA_SCANS,
+              f"a SegMamba step launched the scan's {op} {n} times, expected {SEGMAMBA_SCANS}")
+    check(others["fused_plane"] == 1 == sum(others.values()),
+          f"a SegMamba step launched {others}, expected the plane kernel once")
+    check(not plain_on_card, f"plain scan ran on the card: {plain_on_card}")
+    check(math.isfinite(loss), f"SegMamba step loss {loss}")
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    check(changed > 0, "the SegMamba step left every parameter unchanged")
+    return {"kernel_vs_plain_over_max": errs, "tolerance": SCAN_TOL,
+            "segmamba_step": {"params": n_params, "loss": loss, "counters": moved,
+                              "launches": others, "params_changed": changed,
+                              "peak_memory_gb": peak_gb}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -3068,7 +3212,7 @@ def main() -> int:
     for phase in (kernel_phase, axis_kernel_phase, slice_phase, train_phase, runner_phase,
                   pointwise_kernel_phase, corruption_phase, fused_rest_phase, gan_phase,
                   domain_phase, learnable_phase, parallel_phase, serve_phase, compat_phase,
-                  studies_phase):
+                  studies_phase, scan_phase):
         t0 = time.perf_counter()
         res = phase(dev)
         out({phase.__name__: res, "seconds": time.perf_counter() - t0})

@@ -20,8 +20,9 @@ it prints the same one summary JSON line. ``--device`` defaults to
 sizes; ``--ckpt-every`` the checkpoint (and DCGAN FID) cadence of chunked
 GAN and learnable runs; ``--mitigated`` runs a GAN config's mitigation profile
 (``registry.mitigated``: one-sided label smoothing 0.9); ``--arch
-swin_unetr`` trains a segmentation config's data with SwinUNETR on 128^3
-crops in place of its UNet (a model the JAX package does not have).
+swin_unetr`` / ``--arch segmamba`` trains a segmentation config's data with
+SwinUNETR / SegMamba on 128^3 crops in place of its UNet (models the JAX
+package does not have).
 ``domain`` runs ``run_domain_experiment`` with ``--epochs``, ``--steps``,
 ``--seed``, ``--workdir``, ``--quiet`` and ``--device``, as the JAX CLI
 passes them, refuses each of ``run``'s own options (``RUN_ONLY``), which
@@ -66,8 +67,8 @@ def _run_options(p: argparse.ArgumentParser, refused: bool) -> None:
     add("--ckpt-every", type=int, default=None,
         help="checkpoint/FID cadence in epochs (chunked GAN and learnable runs)")
     add("--arch", choices=sorted(SEG_ARCHS), default="unet",
-        help="segmentation model: the config's UNet, or SwinUNETR at its published "
-             "widths on 128^3 crops")
+        help="segmentation model: the config's UNet, or SwinUNETR or SegMamba at its "
+             "published widths on 128^3 crops")
 
 
 def main(argv=None) -> int:

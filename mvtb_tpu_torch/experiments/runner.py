@@ -23,7 +23,6 @@ be imported, and log one line saying they were skipped when it cannot.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import time
@@ -41,7 +40,7 @@ from mvtb_tpu_torch.eval import plots
 from mvtb_tpu_torch.eval.harness import ModelEvaluation
 from mvtb_tpu_torch.experiments.registry import ExperimentConfig, fast_science
 from mvtb_tpu_torch.experiments.registry import get as get_config
-from mvtb_tpu_torch.models import SEG_ARCHS, build_seg_model
+from mvtb_tpu_torch.models import build_seg_model, seg_run_config, seg_widths
 from mvtb_tpu_torch.train.checkpoint import CheckpointManager
 from mvtb_tpu_torch.train.chunked import (DCGAN_CURVES, RECON_CURVES, make_chunk_fn,
                                           make_dcgan_chunk_fn, make_recon_gan_chunk_fn)
@@ -138,22 +137,13 @@ def epoch_generator(base: int, epoch: int, device: DeviceLike = None) -> torch.G
     return torch.Generator(device=resolve_device(device)).manual_seed(int(word))
 
 
-# the crop a model other than the config's UNet trains on (its published
-# one), and the most crops a step of it takes: what one replica holds on an
-# 80 GB card without activation checkpointing (a ``fast`` profile's batch
-# of 16 is cut to it)
-ARCH_SPATIAL = {"swin_unetr": (128, 128, 128)}
-ARCH_MAX_BATCH = {"swin_unetr": 4}
-
-
 def _seg_state(cfg: ExperimentConfig, seed: int, dev: torch.device,
                arch: str = "unet") -> SegState:
     """The run's segmentation model (:func:`~mvtb_tpu_torch.models.
     build_seg_model`: the config's UNet, or ``arch`` at its published
     widths), initialised from ``seed`` (PyTorch's generators are forked, so
     the caller's stay as they were), and the reference optimizer."""
-    widths = (dict(channels=cfg.channels, strides=cfg.strides,
-                   num_res_units=cfg.num_res_units) if arch == "unet" else {})
+    widths = seg_widths(cfg, arch)
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
         model = build_seg_model(arch, cfg.in_channels, cfg.out_channels, device=dev,
@@ -841,10 +831,10 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
     :func:`~mvtb_tpu_torch.experiments.registry.fast_science` (batch 16,
     ``plane_fast``). ``device=None`` means ``"cuda"`` and raises without a
     card. ``arch`` names the segmentation model (``SEG_ARCHS``): ``"unet"``,
-    the config's, or ``"swin_unetr"``, a SwinUNETR at its published widths
-    trained on its published crop (``ARCH_SPATIAL``, 128^3) at most
-    ``ARCH_MAX_BATCH`` (4) crops a step, the run's name gaining
-    ``_swin_unetr``; the other kinds train their own models.
+    the config's, or ``"swin_unetr"`` / ``"segmamba"``, that model at its
+    published widths trained on its published crop (128^3) at most 4 / 2
+    crops a step (``models.seg_run_config``), the run's name gaining
+    ``_<arch>``; the other kinds train their own models.
 
     At ``workdir`` the run writes ``ckpt/`` (``{epoch}.pt`` and its
     metrics), ``history.json`` (chunked runs) and ``{name}_result.json``,
@@ -878,14 +868,7 @@ def run(config: Union[str, ExperimentConfig], *, epochs: Optional[int] = None,
         cfg = fast_science(cfg)
     if cfg.kind not in ("segmentation",) + LEARNABLE_KINDS + GAN_KINDS:
         raise ValueError(f"unknown experiment kind {cfg.kind}")
-    if arch not in SEG_ARCHS:
-        raise ValueError(f"unknown segmentation model {arch!r}; one of {sorted(SEG_ARCHS)}")
-    if arch != "unet":
-        if cfg.kind != "segmentation":
-            raise ValueError(f"arch={arch!r} applies to segmentation configs only "
-                             f"({cfg.name} is kind={cfg.kind!r})")
-        cfg = dataclasses.replace(cfg, name=f"{cfg.name}_{arch}", spatial=ARCH_SPATIAL[arch],
-                                  batch_size=min(cfg.batch_size, ARCH_MAX_BATCH[arch]))
+    cfg = seg_run_config(cfg, arch)
     dev = resolve_device(device)
     epochs = cfg.epochs if epochs is None else epochs
     log = print if verbose else (lambda *_: None)

@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -175,12 +175,13 @@ class LayerNorm(nn.Module):
 
 
 class Conv(nn.Module):
-    """``Conv3d(cin, cout, k, stride, padding=k // 2)`` (MONAI's
-    ``Convolution`` holds it as ``.conv``); ``transposed`` is
-    ``ConvTranspose3d(k, stride, padding=0)``."""
+    """``Conv3d(cin, cout, k, stride, padding)``, ``padding`` ``k // 2``
+    unless given (MONAI's ``Convolution`` holds it as ``.conv``);
+    ``transposed`` is ``ConvTranspose3d(k, stride, padding=0)``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,
-                 transposed: bool = False, device=None, dtype=torch.float32):
+                 transposed: bool = False, device=None, dtype=torch.float32,
+                 padding: Optional[int] = None):
         super().__init__()
         self.conv = nn.Module()
         shape = (cin, cout) if transposed else (cout, cin)
@@ -189,13 +190,14 @@ class Conv(nn.Module):
         with torch.no_grad():
             self.conv.weight.normal_(0.0, 1.0 / math.sqrt(cin * k ** 3))
         self.k, self.stride, self.transposed, self.dtype = k, stride, transposed, dtype
+        self.padding = k // 2 if padding is None else padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.conv.weight.to(self.dtype)
         b = None if self.conv.bias is None else self.conv.bias.to(self.dtype)
         if self.transposed:
             return F.conv_transpose3d(x.to(self.dtype), w, b, stride=self.stride)
-        return F.conv3d(x.to(self.dtype), w, b, stride=self.stride, padding=self.k // 2)
+        return F.conv3d(x.to(self.dtype), w, b, stride=self.stride, padding=self.padding)
 
 
 class ResBlock(nn.Module):

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mvtb_tpu_torch"
 SOURCES = {"fused_plane": "fused_plane.cu", "axis_dft": "axis_dft.cu",
-           "pointwise": "pointwise.cu"}
+           "pointwise": "pointwise.cu", "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

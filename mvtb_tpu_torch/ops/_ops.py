@@ -7,8 +7,9 @@ namespace, with three implementations:
   argument checks, the allocation of the outputs and any scratch, the
   launch on the current stream) and its count in the process's counters
   (``utils/profiling.py``: ``launch.fused_plane``, ``launch.sap``,
-  ``launch.polar``, ``launch.axis_dft.<body>`` and
-  ``launch.axis_dft.<body>.<route>.<precision>``), so a run of an exported
+  ``launch.polar``, ``launch.axis_dft.<body>``,
+  ``launch.axis_dft.<body>.<route>.<precision>`` and
+  ``launch.selective_scan.fwd`` / ``.bwd``), so a run of an exported
   program counts its launches as an eager run does;
 * CPU: the kernel's plain PyTorch version, which the wrapper has always
   taken for a CPU tensor;
@@ -20,7 +21,8 @@ Every op returns new tensors and mutates no argument. The wrappers
 (``fused_plane.plane_stylize_half``, ``pallas_dft.lane_call`` /
 ``sub_call``, ``pallas_kernels.salt_and_pepper_pallas`` /
 ``polar_roundtrip_pallas``) keep their signatures and are thin calls of
-these ops. A program exported with one of them needs this module imported
+these ops; ``selective_scan.selective_scan`` is an autograd function over
+the scan's forward and backward ops. A program exported with one of them needs this module imported
 before ``torch.export.load``; importing it imports no model.
 
 The kernels' own constants are made inside the CUDA implementations on the
@@ -42,6 +44,7 @@ from torch.library import custom_op
 from mvtb_tpu_torch.ops import fused_plane as _fp
 from mvtb_tpu_torch.ops import pallas_dft as _pd
 from mvtb_tpu_torch.ops import pallas_kernels as _pk
+from mvtb_tpu_torch.ops import selective_scan as _ss
 
 
 @custom_op("mvtb::fused_plane", mutates_args=(), device_types="cpu")
@@ -116,3 +119,46 @@ def _(re, im):
 @polar.register_fake
 def _(re, im):
     return torch.empty_like(re), torch.empty_like(im)
+
+
+@custom_op("mvtb::selective_scan_fwd", mutates_args=(), device_types="cpu")
+def selective_scan_fwd(u: Tensor, delta: Tensor, z: Tensor, B: Tensor, C: Tensor, A: Tensor,
+                       D: Tensor, delta_bias: Tensor) -> Tuple[Tensor, Tensor]:
+    """The selective scan's gated output and its chunk start states
+    (:mod:`.selective_scan`)."""
+    return _ss.scan_fwd_plain(u, delta, z, B, C, A, D, delta_bias)
+
+
+@selective_scan_fwd.register_kernel("cuda")
+def _(u, delta, z, B, C, A, D, delta_bias):
+    return _ss.fwd_launch(u, delta, z, B, C, A, D, delta_bias)
+
+
+@selective_scan_fwd.register_fake
+def _(u, delta, z, B, C, A, D, delta_bias):
+    b, d, L = u.shape
+    return (u.new_empty((b, d, L)),
+            u.new_empty((b, _ss.chunks(L), d, A.shape[-1]), dtype=_ss.state_dtype(u.dtype)))
+
+
+@custom_op("mvtb::selective_scan_bwd", mutates_args=(), device_types="cpu")
+def selective_scan_bwd(u: Tensor, delta: Tensor, z: Tensor, B: Tensor, C: Tensor, A: Tensor,
+                       D: Tensor, delta_bias: Tensor, hstart: Tensor,
+                       dout: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
+                                              Tensor, Tensor]:
+    """The selective scan's gradients ``(du, ddelta, dz, dB, dC, dA, dD,
+    ddelta_bias)`` (:mod:`.selective_scan`)."""
+    return _ss.scan_bwd_plain(u, delta, z, B, C, A, D, delta_bias, hstart, dout)
+
+
+@selective_scan_bwd.register_kernel("cuda")
+def _(u, delta, z, B, C, A, D, delta_bias, hstart, dout):
+    return _ss.bwd_launch(u, delta, z, B, C, A, D, delta_bias, hstart, dout)
+
+
+@selective_scan_bwd.register_fake
+def _(u, delta, z, B, C, A, D, delta_bias, hstart, dout):
+    p = _ss.state_dtype(A.dtype)
+    return (torch.empty_like(u), torch.empty_like(delta), z.new_empty(z.shape),
+            torch.empty_like(B), torch.empty_like(C), A.new_empty(A.shape, dtype=p),
+            D.new_empty(D.shape, dtype=p), delta_bias.new_empty(delta_bias.shape, dtype=p))

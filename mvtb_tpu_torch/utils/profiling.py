@@ -22,21 +22,28 @@ batch of the harness, the request) > ``mvtb.loader.to_host``,
 ``mvtb.eval.to_device``, ``mvtb.sw`` > ``mvtb.sw.grid``,
 ``mvtb.sw.forward``, ``mvtb.sw.blend``; ``mvtb.eval.dice``; in a
 SwinUNETR forward (``models/swin_unetr.py``) ``mvtb.swin.encoder`` >
-``mvtb.swin.window``, ``mvtb.swin.attn``, and ``mvtb.unetr.conv``. Counters:
+``mvtb.swin.window``, ``mvtb.swin.attn``, and ``mvtb.unetr.conv``; in a
+SegMamba forward (``models/segmamba.py``) ``mvtb.mamba.encoder`` >
+``mvtb.mamba.gsc``, ``mvtb.mamba.layout``, ``mvtb.mamba.scan``, and
+``mvtb.unetr.conv``. Counters:
 ``copy.h2d_bytes``, ``copy.d2h_bytes``, ``copy.h2d_pinned_bytes``,
 ``copy.d2h_pinned_bytes`` (the part of each from or into page-locked
 memory), ``eval.volumes`` (rows the harness evaluated), ``sw.tiles``
 (sliding-window tiles needed), ``sw.tile_slots`` (tile slots forwarded,
 padding included), SwinUNETR's ``swin.tokens`` (real tokens entering a
 block), ``swin.window_tokens`` (padded tokens it attends) and
-``swin.windows``, the UNet's convolution calls (``models/unet3d.py``):
+``swin.windows``, SegMamba's ``mamba.tokens`` (tokens entering a Mamba
+layer), ``mamba.scans`` (scan calls) and ``mamba.scan_positions`` (batch
+times length over the scan calls), the UNet's convolution calls
+(``models/unet3d.py``):
 ``unet.convs`` (all, transposed ones included) and ``unet.convs_ndhwc``
 (those on a channels-last input), and the hand-written kernels' launches
 on the card,
 counted inside each custom op's CUDA implementation (``ops/_ops.py``):
 ``launch.fused_plane``, ``launch.sap``, ``launch.polar``,
 ``launch.axis_dft.<body>`` and, by route and tier,
-``launch.axis_dft.<body>.<route>.<precision>``.
+``launch.axis_dft.<body>.<route>.<precision>``, ``launch.selective_scan.fwd``
+and ``launch.selective_scan.bwd``.
 """
 
 from __future__ import annotations

@@ -278,7 +278,8 @@ def test_build_names_the_hopper_target():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.SOURCES == {"fused_plane": "fused_plane.cu",
                               "axis_dft": "axis_dft.cu",
-                              "pointwise": "pointwise.cu"}
+                              "pointwise": "pointwise.cu",
+                              "selective_scan": "selective_scan.cu"}
     for name, src in _build.SOURCES.items():
         assert (_build.CSRC / src).is_file()
         assert _build.lib_path(name).parent == _build.BUILD_DIR

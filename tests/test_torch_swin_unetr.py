@@ -26,6 +26,7 @@ from mvtb_tpu_torch.eval.harness import ModelEvaluation
 from mvtb_tpu_torch.experiments import __main__ as tmain
 from mvtb_tpu_torch.experiments import registry as treg
 from mvtb_tpu_torch.experiments import runner as trunner
+from mvtb_tpu_torch import models as tmodels
 from mvtb_tpu_torch.models import SEG_ARCHS, SwinUNETR, UNet, build_seg_model
 from mvtb_tpu_torch.models import swin_unetr as sw
 from mvtb_tpu_torch.ops.fused import StylizeConfig
@@ -238,7 +239,7 @@ def test_counters_and_spans(tmp_path):
 
 
 def test_build_seg_model_names_its_models():
-    assert set(SEG_ARCHS) == {"unet", "swin_unetr"}
+    assert set(SEG_ARCHS) == {"unet", "swin_unetr", "segmamba"}
     assert isinstance(build_seg_model("unet", device="cpu", channels=(4, 8), strides=(2,),
                                       num_res_units=1), UNet)
     with pytest.raises(ValueError, match="unknown segmentation model"):
@@ -267,7 +268,8 @@ def tiny_gibbs(monkeypatch):
                               train_stylize=StylizeConfig(disk_r=4.0, disk_prob=1.0),
                               val_stylize=StylizeConfig(disk_r=4.0, disk_prob=1.0))
     monkeypatch.setitem(treg.REGISTRY, "gibbs12p5", cfg)
-    monkeypatch.setitem(trunner.ARCH_SPATIAL, "swin_unetr", (32, 32, 32))
+    monkeypatch.setitem(tmodels.SEG_ARCHS, "swin_unetr",
+                        tmodels.SEG_ARCHS["swin_unetr"]._replace(crop=(32, 32, 32)))
     real = trunner.build_seg_model
     built = []
 
@@ -281,7 +283,9 @@ def tiny_gibbs(monkeypatch):
 
 
 def test_cli_run_arch_swin_unetr_chunked(tiny_gibbs, capsys, tmp_path, monkeypatch):
-    monkeypatch.setitem(trunner.ARCH_MAX_BATCH, "swin_unetr", 1)  # gibbs12p5 trains 2 a step
+    # gibbs12p5 trains 2 a step
+    monkeypatch.setitem(tmodels.SEG_ARCHS, "swin_unetr",
+                        tmodels.SEG_ARCHS["swin_unetr"]._replace(max_batch=1))
     seen = []
     real = trunner.make_chunk_fn
 
